@@ -171,8 +171,8 @@ class System:
             dtype=torch.float32, device=self.device)
         self._gen = torch.Generator(device=self.device)
         self._n_init_refs = len(config.tracking.init_ref_gaps)
-        # Frames through make_frame (each runs one FAST launch per
-        # pyramid level on the card).
+        # Frames through make_frame (each runs one FAST launch on the
+        # card, over every pyramid level).
         self.frames_extracted = 0
         self.reset()
 

@@ -5,13 +5,15 @@ JAX package's ``send_slam_tpu/ops/fast.py`` (16 shifted views, bit-mask
 run test, arc-min score). They run on the CPU and are the oracle the
 CUDA kernel (``csrc/fast_kernel.cu``) is held against on the card.
 
-``fast_score`` is what the front end calls: a CUDA tensor goes to the
-kernel (or the call raises), a CPU tensor to the plain version.
+``fast_score_levels`` is what the front end calls, once per frame on
+every pyramid level: a CUDA list goes to the kernel in one launch (or the
+call raises), a CPU list to the plain version level by level.
+``fast_score`` is the same for one image.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,13 +93,29 @@ def nms3x3(score: torch.Tensor) -> torch.Tensor:
 
 
 def fast_score(img: torch.Tensor, threshold: float, with_nms: bool = False):
-    """FAST scores of (H, W) or (B, H, W) float32 images: the raw map, or
-    (raw, nms3x3(raw)) with ``with_nms``. A CUDA tensor launches the
-    CUDA kernel; a CPU tensor runs the plain version."""
-    if img.is_cuda:
-        from send_slam_tpu_torch.ops.fast_cuda import fast_score_cuda
-        return fast_score_cuda(img.contiguous(), threshold, with_nms)
-    if img.device.type != "cpu":
-        raise ValueError(f"fast_score: unsupported device {img.device}")
-    raw = fast_score_map(img, threshold)
-    return (raw, nms3x3(raw)) if with_nms else raw
+    """FAST scores of one (H, W) or (B, H, W) float32 image: the raw map,
+    or (raw, nms3x3(raw)) with ``with_nms`` (a one-level
+    ``fast_score_levels``; the image is made contiguous first)."""
+    return fast_score_levels([img.contiguous()], threshold, with_nms)[0]
+
+
+def fast_score_levels(levels: Sequence[torch.Tensor], threshold: float,
+                      with_nms: bool = False) -> List:
+    """FAST scores of every pyramid level in ``levels`` (each (H, W), or
+    each (B, H, W) with one B): a raw map per level, or a (raw,
+    nms3x3(raw)) pair per level with ``with_nms``. A list of CUDA
+    tensors is one kernel launch; a list of CPU tensors runs the plain
+    version level by level."""
+    levels = list(levels)
+    if levels and all(lv.is_cuda for lv in levels):
+        from send_slam_tpu_torch.ops.fast_cuda import fast_score_levels_cuda
+        return fast_score_levels_cuda(levels, threshold, with_nms)
+    if not all(lv.device.type == "cpu" for lv in levels):
+        raise ValueError("fast_score_levels: levels must all lie on the "
+                         "CPU or all on CUDA, got "
+                         f"{sorted({str(lv.device) for lv in levels})}")
+    out = []
+    for lv in levels:
+        raw = fast_score_map(lv, threshold)
+        out.append((raw, nms3x3(raw)) if with_nms else raw)
+    return out

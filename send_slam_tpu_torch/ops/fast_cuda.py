@@ -4,16 +4,24 @@ The source is compiled at first use with plain ``nvcc`` into a shared
 library with a C interface (no PyTorch headers: a few seconds), keyed by
 a hash of the source, under ``send_slam_tpu_torch/_build/`` (git-ignored),
 and loaded with ``ctypes``. Nothing is built or loaded at import time.
+``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is
+kept beside the library (:func:`ptxas_report`).
 
-``launches`` counts kernel launches made through :func:`fast_score_cuda`;
-callers that want to show a run went through the kernel reset it to 0
-and read it back.
+One launch scores every level of a pyramid, and every row of a batch:
+:func:`fast_score_levels_cuda`. The tile table that maps the launch's
+1-D grid onto the levels is computed here (:func:`tile_table`) and
+checked again by the C entry point.
+
+``launches`` counts kernel launches; callers that want to show a run
+went through the kernel reset it to 0 and read it back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -21,16 +29,22 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Sequence, Tuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fast_kernel.cu"
 BUILD_DIR = _PKG / "_build"
+MAX_LEVELS = 16       # entries of the kernel's level table
+# The kernel's tile, chosen on the card (PERF.md section 6); the build
+# passes it to csrc/fast_kernel.cu, and tile_table uses it.
+TILE_W, TILE_H = 64, 32
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DFAST_TILE_W={TILE_W}", f"-DFAST_TILE_H={TILE_H}"]
 
-launches = 0          # kernel launches through fast_score_cuda
+launches = 0          # kernel launches through fast_score_levels_cuda
 build_seconds = None  # wall time of the nvcc build in this process
 
 _lib = None
@@ -53,6 +67,12 @@ def library_path() -> Path:
     return BUILD_DIR / f"fast_kernel_{digest}.so"
 
 
+def ptxas_report() -> str:
+    """nvcc's -Xptxas -v lines of the built library ('' before a build)."""
+    log = library_path().with_suffix(".ptxas.txt")
+    return log.read_text() if log.exists() else ""
+
+
 def build() -> Path:
     """Compile the kernel if its library is missing; return its path."""
     global build_seconds
@@ -69,6 +89,7 @@ def build() -> Path:
         os.unlink(tmp)
         raise RuntimeError("nvcc failed on %s:\n%s%s" % (
             SOURCE, proc.stdout, proc.stderr))
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)            # atomic: concurrent builders agree
     build_seconds = time.perf_counter() - t0
     return out
@@ -80,43 +101,107 @@ def load():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.fast_score.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p]
-            lib.fast_score.restype = ctypes.c_int
+            lib.fast_score_levels.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            lib.fast_score_levels.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
+def tile_table(shapes: Tuple[Tuple[int, int], ...]
+               ) -> Tuple[Tuple[int, ...], Tuple[int, ...], int]:
+    """Tiles (TILE_W x TILE_H) across each level, each level's first tile
+    in the launch's 1-D tile list, and the tile count of all levels
+    together."""
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"{len(shapes)} levels: the kernel takes 1 to "
+                         f"{MAX_LEVELS}")
+    tiles_x, tile0, n = [], [], 0
+    for h, w in shapes:
+        if h < 1 or w < 1:
+            raise ValueError(f"empty level {h}x{w}")
+        tiles_x.append(math.ceil(w / TILE_W))
+        tile0.append(n)
+        n += tiles_x[-1] * math.ceil(h / TILE_H)
+    return tuple(tiles_x), tuple(tile0), n
+
+
+@functools.lru_cache(maxsize=64)
+def _dims(shapes):
+    tiles_x, tile0, n_tiles = tile_table(shapes)
+    flat = [v for (h, w), tx, t0 in zip(shapes, tiles_x, tile0)
+            for v in (h, w, tx, t0)]
+    return (ctypes.c_int * len(flat))(*flat), n_tiles
+
+
+def fast_score_levels_cuda(levels: Sequence[torch.Tensor], threshold: float,
+                           with_nms: bool = False):
+    """FAST scores of every level in ``levels`` in one kernel launch.
+
+    ``levels``: up to 16 contiguous float32 CUDA tensors on one device,
+    each (H, W), or each (B, H, W) with the same B. Returns one raw map
+    per level, or one (raw, nms) pair per level with ``with_nms``; each
+    is a view, in its level's shape, into one buffer for all levels.
+    Launches on the current stream, never syncs."""
+    global launches
+    levels = list(levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"{len(levels)} levels: the kernel takes 1 to "
+                         f"{MAX_LEVELS}")
+    first = levels[0]
+    for lv in levels:
+        if not (isinstance(lv, torch.Tensor) and lv.is_cuda):
+            raise ValueError("fast_score_levels_cuda needs CUDA tensors")
+        if lv.device != first.device:
+            raise ValueError("all levels must lie on one device")
+        if lv.dtype != torch.float32:
+            raise TypeError(f"fast_score_levels_cuda needs float32, "
+                            f"got {lv.dtype}")
+        if lv.dim() != first.dim() or lv.dim() not in (2, 3):
+            raise ValueError("levels must all be (H, W) or all (B, H, W)")
+        if lv.dim() == 3 and lv.shape[0] != first.shape[0]:
+            raise ValueError("levels must share one batch size")
+        if not lv.is_contiguous():
+            raise ValueError("fast_score_levels_cuda needs contiguous levels")
+        if lv.numel() == 0:
+            raise ValueError(f"empty level {tuple(lv.shape)}")
+    if not threshold >= 0.0:
+        raise ValueError(f"threshold must be >= 0, got {threshold}")
+    B = first.shape[0] if first.dim() == 3 else 1
+    shapes = tuple((lv.shape[-2], lv.shape[-1]) for lv in levels)
+    dims, n_tiles = _dims(shapes)
+    lib = load()
+    offsets = [0]
+    for lv in levels:
+        offsets.append(offsets[-1] + lv.numel())
+    raw = torch.empty(offsets[-1], dtype=torch.float32, device=first.device)
+    nms = torch.empty_like(raw) if with_nms else None
+    ptrs = [lv.data_ptr() for lv in levels]
+    for buf in (raw, nms):
+        base = buf.data_ptr() if buf is not None else None
+        ptrs += [base + 4 * o if base is not None else None
+                 for o in offsets[:-1]]
+    stream = torch.cuda.current_stream(first.device).cuda_stream
+    with torch.cuda.device(first.device):
+        err = lib.fast_score_levels(len(levels), B,
+                                    (ctypes.c_void_p * len(ptrs))(*ptrs),
+                                    dims, n_tiles, float(threshold), stream)
+    if err != 0:
+        raise RuntimeError(f"fast_score_levels launch failed: CUDA error {err}")
+    launches += 1
+    # One as_strided view per level (half the host time of split + view).
+    raws = [raw.as_strided(lv.shape, lv.stride(), o)
+            for lv, o in zip(levels, offsets)]
+    if not with_nms:
+        return raws
+    return list(zip(raws, [nms.as_strided(lv.shape, lv.stride(), o)
+                           for lv, o in zip(levels, offsets)]))
+
+
 def fast_score_cuda(img: torch.Tensor, threshold: float,
                     with_nms: bool = False):
-    """FAST score of (H, W) or (B, H, W) float32 CUDA images.
-
-    Returns the raw score map, or (raw, nms) with ``with_nms``; both in
-    the input's shape. Launches on the current stream, never syncs."""
-    global launches
-    if not img.is_cuda:
-        raise ValueError("fast_score_cuda needs a CUDA tensor")
-    if img.dtype != torch.float32:
-        raise TypeError(f"fast_score_cuda needs float32, got {img.dtype}")
-    if img.dim() not in (2, 3):
-        raise ValueError(f"expected (H, W) or (B, H, W), got {tuple(img.shape)}")
-    if not img.is_contiguous():
-        raise ValueError("fast_score_cuda needs a contiguous tensor")
-    B = 1 if img.dim() == 2 else img.shape[0]
-    H, W = img.shape[-2], img.shape[-1]
-    if B == 0 or H == 0 or W == 0:
-        raise ValueError(f"empty image batch {tuple(img.shape)}")
-    lib = load()
-    raw = torch.empty_like(img)
-    nms = torch.empty_like(img) if with_nms else None
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    with torch.cuda.device(img.device):
-        err = lib.fast_score(img.data_ptr(), raw.data_ptr(),
-                             nms.data_ptr() if with_nms else None,
-                             B, H, W, float(threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"fast_score kernel launch failed: CUDA error {err}")
-    launches += 1
-    return (raw, nms) if with_nms else raw
+    """FAST score of one (H, W) or (B, H, W) float32 CUDA image: a
+    one-level table on the same kernel. Returns the raw map, or (raw,
+    nms) with ``with_nms``, in the input's shape."""
+    return fast_score_levels_cuda([img], threshold, with_nms)[0]

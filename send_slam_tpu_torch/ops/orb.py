@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from send_slam_tpu_torch.config import OrbConfig
-from send_slam_tpu_torch.ops.fast import fast_score
+from send_slam_tpu_torch.ops.fast import fast_score_levels
 from send_slam_tpu_torch.ops.pyramid import build_pyramid, gaussian_blur
 
 PATCH_R = 15           # orientation patch radius (31x31)
@@ -251,18 +251,20 @@ def brief_from_patches(patches: torch.Tensor,
 
 def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> FrameFeatures:
     """(H, W) float32 grayscale -> FrameFeatures of capacity
-    cfg.n_features. One FAST launch per pyramid level returns both the
-    raw score map (sub-pixel fit) and its 3x3 NMS (selection)."""
+    cfg.n_features. One FAST launch over every pyramid level returns
+    each level's raw score map (sub-pixel fit) and its 3x3 NMS
+    (selection)."""
     levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     budgets = cfg.per_level_features
     border = cfg.edge_threshold
     dev = img.device
+    scores = fast_score_levels([lv.contiguous() for lv in levels],
+                               float(cfg.min_th_fast), with_nms=True)
 
     parts: List[FrameFeatures] = []
     for lvl, (level_img, n_lvl) in enumerate(zip(levels, budgets)):
         H, W = level_img.shape
-        raw, s_lo = fast_score(level_img.contiguous(),
-                               float(cfg.min_th_fast), with_nms=True)
+        raw, s_lo = scores[lvl]
         zero = torch.zeros_like(s_lo)
         s_hi = torch.where(s_lo > float(cfg.ini_th_fast), s_lo, zero)
         ys = torch.arange(H, device=dev)[:, None]

@@ -63,3 +63,75 @@ def test_launch_counter_and_checks(dev):
     with pytest.raises(ValueError):
         fast_cuda.fast_score_cuda(img[:, ::2], 7.0)
     assert fast_cuda.launches == n0 + 2
+
+
+PYRAMID = list(level_shapes(480, 640, 8, 1.2))
+
+
+@pytest.mark.parametrize("th", [7.0, 20.0])
+@pytest.mark.parametrize("with_nms", [False, True])
+def test_one_launch_over_the_pyramid_equals_plain(dev, th, with_nms):
+    levels = [texture(h, w, seed=i).to(dev) for i, (h, w) in
+              enumerate(PYRAMID + [(100, 128), (7, 9)])]
+    n0 = fast_cuda.launches
+    got = fast_cuda.fast_score_levels_cuda(levels, th, with_nms)
+    assert fast_cuda.launches == n0 + 1
+    for lv, out in zip(levels, got):
+        ref = fast.fast_score_map(lv, th)
+        raw = out[0] if with_nms else out
+        assert raw.shape == lv.shape and torch.equal(raw, ref)
+        if with_nms:
+            assert torch.equal(out[1], fast.nms3x3(ref))
+
+
+def test_fast_score_takes_a_non_contiguous_image(dev):
+    img = texture(80, 130, seed=4).to(dev)[:, 1:-1]
+    assert not img.is_contiguous()
+    raw, nms = fast.fast_score(img, 7.0, with_nms=True)
+    ref = fast.fast_score_map(img, 7.0)
+    assert torch.equal(raw, ref) and torch.equal(nms, fast.nms3x3(ref))
+
+
+def test_batch_of_8_pyramids_equals_single_launches(dev):
+    levels = [torch.stack([texture(h, w, seed=10 * s + i) for s in range(8)])
+              .to(dev) for i, (h, w) in enumerate(PYRAMID)]
+    n0 = fast_cuda.launches
+    got = fast_cuda.fast_score_levels_cuda(levels, 7.0, with_nms=True)
+    assert fast_cuda.launches == n0 + 1
+    for r in range(8):
+        one = fast_cuda.fast_score_levels_cuda(
+            [lv[r].contiguous() for lv in levels], 7.0, with_nms=True)
+        for (raw_b, nms_b), (raw_1, nms_1) in zip(got, one):
+            assert torch.equal(raw_b[r], raw_1) and torch.equal(nms_b[r], nms_1)
+
+
+def test_levels_wrapper_refuses(dev):
+    img = texture(64, 80, seed=1).to(dev)
+    batch = torch.stack([img, img])
+    refused = [
+        ([img] * (fast_cuda.MAX_LEVELS + 1), 7.0, ValueError),
+        ([], 7.0, ValueError),
+        ([img, img.cpu()], 7.0, ValueError),
+        ([batch, torch.stack([img] * 3)], 7.0, ValueError),
+        ([batch, img], 7.0, ValueError),
+        ([img, img.double()], 7.0, TypeError),
+        ([img, img[:, ::2]], 7.0, ValueError),
+        ([img], -1.0, ValueError),
+        ([img], float("nan"), ValueError),
+    ]
+    n0 = fast_cuda.launches
+    for levels, th, exc in refused:
+        with pytest.raises(exc):
+            fast_cuda.fast_score_levels_cuda(levels, th)
+    assert fast_cuda.launches == n0
+    assert len(fast_cuda.fast_score_levels_cuda(
+        [img] * fast_cuda.MAX_LEVELS, 7.0)) == fast_cuda.MAX_LEVELS
+
+
+def test_dispatcher_sends_cuda_levels_to_one_launch(dev):
+    levels = [texture(h, w, seed=i).to(dev) for i, (h, w) in enumerate(PYRAMID)]
+    n0 = fast_cuda.launches
+    got = fast.fast_score_levels(levels, 7.0, with_nms=True)
+    assert fast_cuda.launches == n0 + 1 and len(got) == len(levels)
+    with pytest.raises(ValueError):
+        fast.fast_score_levels([levels[0], levels[1].cpu()], 7.0)
