@@ -23,8 +23,26 @@ Phases, each printing one JSON line:
    (the plain path) on one 640x480 frame;
 5. main_path: System.track_monocular at the flagship configuration
    (640x480, 1250 features, 8 levels, 256 keyframes, 16384 landmarks,
-   BA window 8) over 90 frames of the synthetic bench scene, with the
-   kernel's launch count read around the run (one launch per frame);
+   BA window 8) with the JAX package's default tracking options and
+   loop closing off (slice_config) over 90 frames of the synthetic bench
+   scene, with the kernel's launch count read around the run (one
+   launch per make_frame, collapse retries included). Poses are counted
+   as bench.py counts them: live OK outputs, every backfill triple and
+   the shutdown drain;
+6. replay: the same run on a fresh System in the same process; every
+   emitted pose, the keyframe and the landmark counts must be
+   bit-equal to the first run's;
+7. step_parity: at 3 tracked frames of the replay, the carried map and
+   loop state go to a card System and a CPU System, and each runs
+   _frame_step on the next image, one wide and one young polish slice,
+   and _reloc_step on an earlier image with the same injected RANSAC
+   draws; poses to 1e-4, inliers +-2, the keyframe decision, keyframe
+   count, rebase flag and winning branch exactly, polished poses and
+   landmarks to 1e-3;
+8. relocalization: the main run's System is fed featureless frames
+   until it is LOST, then frames of mapped territory; it must be
+   TRACKING_OK again within 5 frames (its Sim(3)-aligned position
+   error, the winning branch and the inliers are printed);
 
 then the kernels summary line and, last, {"ok": true, "device": ...}.
 Any failed check exits non-zero; a watchdog ends the run after 290 s.
@@ -47,6 +65,8 @@ import numpy as np
 WATCHDOG_S = 290
 N_FRAMES = 90
 MIN_TRACKED = 30
+PARITY_FRAMES = (30, 55, 80)    # replay frames whose carried state is held
+RELOC_FRAMES = 5                # mapped frames allowed to relocalize
 # H100 SXM (NVIDIA data sheet): HBM bandwidth, and fp32 outside the
 # tensor cores, 67 TFLOP/s = 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz.
 PEAK_BYTES_S = 3.35e12
@@ -351,6 +371,212 @@ def frontend_check(torch, make_frame, cfg, img):
                 desc_rows_differing=desc_rows)
 
 
+def drive(torch, system, frames, ts, after_frame=None):
+    """Feed the frames and drain at shutdown; count poses as bench.py
+    does (live OK outputs, backfill triples, the shutdown drain).
+    Returns the emitted (timestamp, position, orientation) list in
+    emission order, the time-ordered estimate and the per-frame ms of
+    live OK frames (each frame ends in a device sync)."""
+    from send_slam_tpu_torch.models.system import TRACKING_OK
+    emitted, t_ok, live, backfilled = [], [], 0, 0
+    t_run = time.perf_counter()
+
+    def take(out):
+        nonlocal live, backfilled
+        if out.tracking_state == TRACKING_OK:
+            live += 1
+            emitted.append((out.timestamp, out.position, out.orientation))
+        backfilled += len(out.backfill)
+        emitted.extend(out.backfill)
+
+    for k in range(len(frames)):
+        t0 = time.perf_counter()
+        out = system.track_monocular(frames[k], float(ts[k]))
+        torch.cuda.synchronize()
+        if out.tracking_state == TRACKING_OK:
+            t_ok.append((time.perf_counter() - t0) * 1e3)
+        take(out)
+        if after_frame is not None:
+            after_frame(k, system)
+    for out in system.shutdown():
+        take(out)
+    torch.cuda.synchronize()
+    order = np.argsort(np.asarray([e[0] for e in emitted]), kind="stable")
+    return dict(emitted=emitted, live=live, backfilled=backfilled, t_ok=t_ok,
+                est_ts=[emitted[i][0] for i in order],
+                est_pos=np.asarray([emitted[i][1] for i in order],
+                                   np.float64).reshape(-1, 3),
+                keyframes=int(system._n_kf_host),
+                landmarks=int(system.map.n_landmarks()),
+                polish_slices=dict(system.polish_slices_run),
+                seconds=time.perf_counter() - t_run)
+
+
+def time_calls(torch, system, names):
+    """Wrap each of ``names`` on this System so every call ends in a
+    device sync and its wall ms is appended to the returned lists
+    (numerics unchanged)."""
+    times = {n: [] for n in names}
+    for n in names:
+        fn = getattr(system, n)
+
+        def timed(*a, _fn=fn, _n=n, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[_n].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(system, n, timed)
+    return times
+
+
+def _max_err(a, b):
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def step_parity(torch, System, cfg, snaps, frames, ts):
+    """Phase 7 (ROADMAP C.2): from the card's carried state at each
+    snapshot, the frame step, a wide and a young polish slice and the
+    relocalization step on the card and on the CPU, compared."""
+    from send_slam_tpu_torch.models.map_state import (
+        map_from_numpy, map_to_numpy,
+    )
+    from send_slam_tpu_torch.models.initializer import sample_minimal_sets
+    from send_slam_tpu_torch.models.relocalize import reloc_matches
+    from send_slam_tpu_torch.models.system import (
+        S_INLIERS, S_KF, S_NKF, loop_state_from_numpy,
+    )
+    sides = dict(cuda=System(cfg, device="cuda"),
+                 cpu=System(cfg, device="cpu"))
+    card_ms = time_calls(torch, sides["cuda"], ("_frame_step", "_wide_slice",
+                                                "_young_slice", "_reloc_step"))
+    worst = dict(frame_pose=0.0, frame_inliers=0, polish=0.0, reloc_pose=0.0,
+                 reloc_inliers=0)
+    checks = []
+    for snap in snaps:
+        k = snap["k"]
+        ts_next = float(ts[k + 1]) - snap["t0"]
+        res = {}
+        for dev, s in sides.items():
+            m = map_from_numpy(snap["map"], device=s.device)
+            st = loop_state_from_numpy(snap["st"], device=s.device)
+            t0 = time.perf_counter()
+            _, st2, summ = s._frame_step(m, st, frames[k + 1], ts_next)
+            summ = summ.cpu().numpy()
+            t_step = time.perf_counter() - t0
+            pol = {}
+            for kind in ("wide", "young"):
+                m2, _, _, big = getattr(s, f"_{kind}_slice")(m, 1e-3, False)
+                pol[kind] = (map_to_numpy(m2), bool(big))
+            img = frames[k - 5]
+            frame = s._make_frame(img, float(ts[k - 5]) - snap["t0"])
+            if s.device.type == "cpu":
+                mm = reloc_matches(m.lm_desc, frame.feat.desc, m.lm_valid,
+                                   frame.feat.valid, cfg.tracking)
+                g = torch.Generator().manual_seed(k)
+                idx = sample_minimal_sets(g, mm.valid, 256, 6)
+            res[dev] = dict(st=st2, summ=summ, pol=pol, t_step=t_step,
+                            frame=frame)
+        for dev, s in sides.items():
+            m = map_from_numpy(snap["map"], device=s.device)
+            out, _ = s._reloc_step(m, res[dev]["frame"], sample_idx=idx)
+            res[dev]["reloc"] = (out.R.cpu().numpy(), out.t.cpu().numpy(),
+                                 int(out.n_inliers), bool(out.use_pnp))
+        g, c = res["cuda"], res["cpu"]
+        e_pose = max(_max_err(g["st"].R.cpu(), c["st"].R),
+                     _max_err(g["st"].t.cpu(), c["st"].t))
+        d_inl = abs(int(g["summ"][S_INLIERS]) - int(c["summ"][S_INLIERS]))
+        kf_same = (g["summ"][S_KF] == c["summ"][S_KF]
+                   and g["summ"][S_NKF] == c["summ"][S_NKF])
+        e_pol, big_same = 0.0, True
+        for kind in ("wide", "young"):
+            (mg, bg), (mc, bc) = g["pol"][kind], c["pol"][kind]
+            big_same &= bg == bc
+            for f in ("kf_R", "kf_t", "lm_pos"):
+                e_pol = max(e_pol, _max_err(mg[f], mc[f]))
+        rg, rc = g["reloc"], c["reloc"]
+        e_rel = max(_max_err(rg[0], rc[0]), _max_err(rg[1], rc[1]))
+        d_rel = abs(rg[2] - rc[2])
+        checks.append(dict(frame=k, pose_err=e_pose, inliers_diff=d_inl,
+                           keyframe_decision_equal=bool(kf_same),
+                           inserted=bool(c["summ"][S_KF] > 0.5),
+                           polish_err=e_pol, big_equal=bool(big_same),
+                           reloc_pose_err=e_rel, reloc_inliers=rc[2],
+                           reloc_inliers_diff=d_rel,
+                           reloc_branch="pnp" if rc[3] else "retrieval",
+                           reloc_branch_equal=rg[3] == rc[3],
+                           cpu_step_s=c["t_step"]))
+        if not (e_pose <= 1e-4 and d_inl <= 2 and kf_same):
+            fail(f"frame step at replay frame {k}: card vs CPU pose err "
+                 f"{e_pose}, inliers differ by {d_inl}, keyframe decision "
+                 f"equal: {kf_same}")
+        if not (e_pol <= 1e-3 and big_same):
+            fail(f"polish slices at replay frame {k}: card vs CPU err "
+                 f"{e_pol}, rebase flag equal: {big_same}")
+        if not (e_rel <= 1e-4 and d_rel <= 2 and rg[3] == rc[3]):
+            fail(f"relocalization at replay frame {k}: card vs CPU pose err "
+                 f"{e_rel}, inliers differ by {d_rel}, branch equal: "
+                 f"{rg[3] == rc[3]}")
+        worst = dict(frame_pose=max(worst["frame_pose"], e_pose),
+                     frame_inliers=max(worst["frame_inliers"], d_inl),
+                     polish=max(worst["polish"], e_pol),
+                     reloc_pose=max(worst["reloc_pose"], e_rel),
+                     reloc_inliers=max(worst["reloc_inliers"], d_rel))
+    return dict(tolerances=dict(pose=1e-4, inliers=2, polish=1e-3),
+                worst=worst, checks=checks, card_ms_per_call=card_ms)
+
+
+def reloc_phase(system, frames, ts, gt, est_ts, est_pos):
+    """Phase 8: featureless frames until LOST, then frames of mapped
+    territory until TRACKING_OK (at most RELOC_FRAMES of them)."""
+    from send_slam_tpu_torch.io.evaluate import associate, umeyama_alignment
+    from send_slam_tpu_torch.models.system import (
+        TRACKING_LOST, TRACKING_OK,
+    )
+    tr = system.cfg.tracking
+    n_kf = int(system._n_kf_host)
+    if n_kf < 6:
+        fail(f"the main run made {n_kf} keyframes; relocalization needs 6")
+    blank = np.full_like(frames[0], 20)
+    t = float(ts[-1])
+    dt = float(ts[1] - ts[0])
+    n_blank = 0
+    while system.state != TRACKING_LOST:
+        n_blank += 1
+        t += dt
+        system.track_monocular(blank, t)
+        if n_blank > 40:
+            fail("40 featureless frames did not make the System LOST")
+    ia, ib = associate(np.asarray(est_ts), np.asarray(ts))
+    s_al, R_al, t_al = umeyama_alignment(est_pos[ia], gt[ib])
+    first = len(frames) // 3
+    for i in range(RELOC_FRAMES):
+        j = first + 3 * i
+        t += dt
+        t0 = time.perf_counter()
+        out = system.track_monocular(frames[j], t)
+        ms = (time.perf_counter() - t0) * 1e3
+        if system._reloc_failures >= tr.atlas_reloc_patience:
+            fail("relocalization reached the atlas patience")
+        if out.tracking_state == TRACKING_OK:
+            err = float(np.linalg.norm(
+                s_al * R_al @ np.asarray(out.position, np.float64) + t_al
+                - gt[j]))
+            return dict(keyframes=n_kf, blank_frames=n_blank,
+                        frames_to_recover=i + 1, frame_index=j,
+                        aligned_position_err_m=err,
+                        branch=system.last_reloc["branch"],
+                        inliers=system.last_reloc["inliers"],
+                        reloc_frame_ms=ms,
+                        reloc_failures=system._reloc_failures)
+    fail(f"not relocalized within {RELOC_FRAMES} frames of mapped territory "
+         f"(last attempt: {system.last_reloc})")
+
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -366,8 +592,9 @@ def main() -> int:
     )
     from send_slam_tpu_torch.io.evaluate import ate_rmse
     from send_slam_tpu_torch.models.frame import make_frame
+    from send_slam_tpu_torch.models.map_state import map_to_numpy
     from send_slam_tpu_torch.models.system import (
-        TRACKING_OK, System, slice_config,
+        TRACKING_OK, System, loop_state_to_numpy, slice_config,
     )
     from send_slam_tpu_torch.ops import fast as fast_ops
     from send_slam_tpu_torch.ops import fast_cuda
@@ -410,41 +637,36 @@ def main() -> int:
     emit(dict(phase="frontend_check",
               **frontend_check(torch, make_frame, cfg, frames[0])))
 
-    system = System(cfg, device="cuda")
     fast_cuda.launches = 0
+    system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    poses, t_ok = {}, []       # timestamp -> position of OK outputs
-    for k in range(N_FRAMES):
-        t0 = time.perf_counter()
-        out = system.track_monocular(frames[k], float(ts[k]))
-        torch.cuda.synchronize()
-        dt_ms = (time.perf_counter() - t0) * 1e3
-        if out.tracking_state == TRACKING_OK:
-            t_ok.append(dt_ms)
-            poses.setdefault(out.timestamp, out.position)
-    for out in system.shutdown():
-        if out.tracking_state == TRACKING_OK:
-            poses.setdefault(out.timestamp, out.position)
-    torch.cuda.synchronize()
+    run = drive(torch, system, frames, ts)
     launches = fast_cuda.launches
     n_extracted = system.frames_extracted
 
-    est_ts = sorted(poses)
-    tracked = len(est_ts)
-    pos = np.asarray([poses[t] for t in est_ts], np.float64).reshape(-1, 3)
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
+    est_ts, pos = run["est_ts"], run["est_pos"]
+    tracked = len(est_ts)
     ate = ate_rmse(est_ts, pos, ts, gt) if tracked >= 3 else float("inf")
     result = dict(
-        phase="main_path", frames=N_FRAMES, tracked=tracked,
+        phase="main_path", device=name, nvidia_smi=smi,
+        config="slice_config(EngineConfig(camera=...)): default tracking, "
+               "loop closing off",
+        frames=N_FRAMES, tracked=tracked, tracked_live=run["live"],
+        backfilled=run["backfilled"], tracked_unique=len(set(est_ts)),
         init_commit_ts=system.init_commit_ts,
+        collapse_resets=sum(not p[3] for p in system.collapse_probes),
+        collapse_probes=system.collapse_probes,
+        polish_slices=dict(system.polish_slices_run),
         keyframes=int(system._n_kf_host),
         landmarks=int(system.map.n_landmarks()),
         ate_m=ate, frames_through_make_frame=n_extracted,
         fast_launches=launches,
-        median_ms_per_tracked_frame=(statistics.median(t_ok[1:])
-                                     if len(t_ok) > 1 else None),
-        mean_ms_per_tracked_frame=(statistics.fmean(t_ok[1:])
-                                   if len(t_ok) > 1 else None))
+        median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
+                                     if len(run["t_ok"]) > 1 else None),
+        mean_ms_per_tracked_frame=(statistics.fmean(run["t_ok"][1:])
+                                   if len(run["t_ok"]) > 1 else None),
+        seconds=run["seconds"])
     emit(result)
     if system.init_commit_ts is None:
         fail("the system never initialized")
@@ -454,7 +676,56 @@ def main() -> int:
         fail("non-finite trajectory or ATE")
     if launches != n_extracted or launches == 0:
         fail(f"{launches} FAST launches for {n_extracted} frames "
-             "(expected one per frame)")
+             "(expected one per make_frame)")
+
+    # --- 6 + 7. replay on a fresh System, carried state held card vs CPU --
+    snaps = []
+
+    def snapshot(k, s):
+        """The carried state after the first tracked frame at or past
+        each of PARITY_FRAMES (with 3 keyframes and a next frame)."""
+        if len(snaps) < len(PARITY_FRAMES) \
+                and k >= PARITY_FRAMES[len(snaps)] and k + 1 < len(frames) \
+                and s.state == TRACKING_OK and int(s.map.n_kf) >= 3:
+            snaps.append(dict(k=k, map=map_to_numpy(s.map),
+                              st=loop_state_to_numpy(s._st), t0=s._t0))
+
+    replay_sys = System(cfg, device="cuda")
+    step_ms = time_calls(torch, replay_sys, ("_backfill_step", "_wide_slice",
+                                             "_young_slice"))
+    rerun = drive(torch, replay_sys, frames, ts, after_frame=snapshot)
+    same = (len(rerun["emitted"]) == len(run["emitted"])
+            and all(a[0] == b[0] and np.array_equal(a[1], b[1])
+                    and np.array_equal(a[2], b[2])
+                    for a, b in zip(run["emitted"], rerun["emitted"]))
+            and rerun["keyframes"] == run["keyframes"]
+            and rerun["landmarks"] == run["landmarks"])
+    diff = next(({"index": i, "timestamps": [a[0], b[0]],
+                  "max_abs_diff": _max_err(a[1], b[1])}
+                 for i, (a, b) in enumerate(zip(run["emitted"],
+                                                rerun["emitted"]))
+                 if a[0] != b[0] or not np.array_equal(a[1], b[1])
+                 or not np.array_equal(a[2], b[2])), None)
+    emit(dict(phase="replay", frames=N_FRAMES, first_difference=diff,
+              poses=len(rerun["emitted"]), first_run_poses=len(run["emitted"]),
+              keyframes=rerun["keyframes"], landmarks=rerun["landmarks"],
+              first_run_landmarks=run["landmarks"],
+              polish_slices=rerun["polish_slices"], bit_equal=same,
+              ms_per_call={n: v for n, v in step_ms.items()},
+              seconds=rerun["seconds"]))
+    if not same:
+        fail("a same-seed rerun of the main path is not bit-equal to the "
+             "first run")
+    if len(snaps) < len(PARITY_FRAMES):
+        fail(f"only {len(snaps)} carried states were taken at or past the "
+             f"replay frames {PARITY_FRAMES}: no step parity")
+    emit(dict(phase="step_parity",
+              **step_parity(torch, System, cfg, snaps, frames, ts)))
+
+    # --- 8. relocalization on the main run's System -----------------------
+    reloc_ms = time_calls(torch, system, ("_reloc_step",))
+    emit(dict(phase="relocalization", reloc_step_ms=reloc_ms["_reloc_step"],
+              **reloc_phase(system, frames, ts, gt, est_ts, pos)))
 
     emit({"kernels": [{
         "name": "fast_score", "route": "cuda",

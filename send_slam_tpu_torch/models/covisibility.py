@@ -1,10 +1,11 @@
 """Covisibility over the keyframe table: the local-BA window and
 redundant-keyframe culling.
 
-Counterpart of the slice's part of ``send_slam_tpu/models/
+Counterpart of the ported part of ``send_slam_tpu/models/
 covisibility.py``: the covisibility graph is recomputed on demand as one
-(MK, ML) @ (ML, MK) product of the keyframe/landmark indicator. The
-pose-graph edges (``covis_edges``, ``chain_edges``), the wide window and
+(MK, ML) @ (ML, MK) product of the keyframe/landmark indicator; it gives
+the local-BA window, the wide polish window and redundant-keyframe
+culling. The pose-graph edges (``covis_edges``, ``chain_edges``) and
 compaction belong to loop closing and capacity management, which later
 slices port.
 """
@@ -54,6 +55,30 @@ def covis_window_ids(m: MapState, W: int):
     ids_sorted = torch.sort(torch.where(all_ok, all_ids,
                                         torch.full_like(all_ids, MK))).values
     return ids_sorted.to(torch.int32), ids_sorted < MK
+
+
+def wide_window_ids(m: MapState, W: int):
+    """Wide polish window: the newest W//2 keyframes plus the W - W//2
+    keyframes most covisible with that recent set (ties to the lower
+    slot, as ``lax.top_k``), sorted ascending, padded with MK.
+    Returns (ids (W,) int32, valid (W,) bool)."""
+    MK = m.max_keyframes
+    ids = torch.arange(MK, device=m.device)
+    n = torch.clamp(m.n_kf, max=MK)
+    R = W // 2
+    recent = (ids >= n - R) & (ids < n) & m.kf_valid
+    mass = (covisibility_matrix(m) * recent[None, :].to(torch.float32)).sum(1)
+    eligible = m.kf_valid & (ids < n) & ~recent
+    score = torch.where(eligible & (mass > 0), mass,
+                        torch.full_like(mass, -1.0))
+    top_v, top_i = stable_topk(score, W - R)
+    sel = torch.where(top_v > 0, top_i, torch.full_like(top_i, MK))
+    rec_sorted = torch.sort(torch.where(recent, ids,
+                                        torch.full_like(ids, MK))).values[:R]
+    all_ids = torch.cat([sel, rec_sorted])
+    out = torch.sort(torch.where(all_ids < MK, all_ids,
+                                 torch.full_like(all_ids, MK))).values
+    return out.to(torch.int32), out < MK
 
 
 def keyframe_redundancy(m: MapState, min_other_obs: int = 3) -> torch.Tensor:

@@ -66,9 +66,13 @@ def nanmedian(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def sample_minimal_sets(generator: torch.Generator, valid: torch.Tensor,
                         n_hyp: int, k: int) -> torch.Tensor:
     """(…, n_hyp, k) distinct indices drawn uniformly from the valid
-    entries of (…, N) by Gumbel-top-k."""
+    entries of (…, N) by Gumbel-top-k. The uniforms come from
+    ``generator`` on its own device and move to ``valid``'s, so a CPU
+    generator gives a run on the card the draws of the same run on the
+    CPU."""
     shape = valid.shape[:-1] + (n_hyp, valid.shape[-1])
-    u = torch.rand(shape, generator=generator, device=valid.device)
+    u = torch.rand(shape, generator=generator, device=generator.device) \
+        .to(valid.device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     g = -torch.log(-torch.log(u))
     g = torch.where(valid[..., None, :], g, torch.full_like(g, -math.inf))

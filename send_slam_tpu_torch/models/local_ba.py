@@ -7,13 +7,18 @@ Counterpart of ``send_slam_tpu/models/local_ba.py``
 blocks are eliminated in closed form over the whole landmark table, the
 reduced (6W)^2 camera system is solved dense, and each Levenberg step is
 accepted only if the robust cost does not increase; an observation prune
-follows. Assembly is native scatter-add / gather (``ops/segsum.ObsMap``).
+follows. Assembly is an order-fixed segment sum and a row gather
+(``ops/segsum.ObsMap``). ``wide_bundle_adjustment`` and ``ba_slice`` are
+the JAX package's thin wrappers over it.
 
 The chunked assembly for windows wider than ``kf_chunk`` keyframes (the
-wide and global polish windows) is not on this slice's path and raises.
+global polish window after a loop closure) is not ported and raises; the
+wide window is at most 64 keyframes, which ``kf_chunk`` admits.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -263,3 +268,20 @@ def local_bundle_adjustment(m: MapState, K, cfg: MapConfig, iters: int = 5,
                      kf_t=set_rows(m.kf_t, sid, kf_t),
                      kf_obs_lm=set_rows(m.kf_obs_lm, sid, kf_obs_pruned),
                      lm_pos=lm_pos)
+
+
+def wide_bundle_adjustment(m: MapState, K, cfg: MapConfig,
+                           max_window: int = 64, iters: int = 5) -> MapState:
+    """Drift polish: BA over up to ``max_window`` recent keyframes."""
+    wide = dataclasses.replace(
+        cfg, ba_window=min(cfg.max_keyframes, max_window))
+    return local_bundle_adjustment(m, K, wide, iters=iters)
+
+
+def ba_slice(m: MapState, K, cfg: MapConfig, window_ids, lam,
+             prune=False, n_fixed: int = 2, **kw) -> MapState:
+    """ONE Gauss-Newton iteration over ``window_ids`` at damping
+    ``lam``: the amortized form of local BA."""
+    return local_bundle_adjustment(
+        m, K, cfg, iters=1, damping=lam, window_ids=window_ids,
+        prune=prune, n_fixed=n_fixed, **kw)

@@ -143,10 +143,19 @@ def empty_map(cfg: MapConfig, n_keypoints: int, device=None,
 
 def set_rows(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """Copy of ``arr`` with rows ``idx`` set to ``vals``; indices outside
-    [0, len) are dropped (JAX's ``.at[idx].set(vals, mode="drop")``)."""
+    [0, len) are dropped (JAX's ``.at[idx].set(vals, mode="drop")``).
+    Where an index repeats, its last row writes, on every device: a
+    scatter on the card would otherwise let any of them win, and a run
+    would not replay."""
     n = arr.shape[0]
     idx = idx.to(torch.int64).reshape(-1)
     idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+    if idx.shape[0] > 1:
+        pos = torch.arange(idx.shape[0], device=idx.device)
+        last = torch.full((n + 1,), -1, dtype=torch.int64,
+                          device=idx.device).scatter_reduce_(0, idx, pos,
+                                                             "amax")
+        idx = torch.where(last[idx] == pos, idx, torch.full_like(idx, n))
     ext = torch.cat([arr, arr[:1]])
     vals = torch.as_tensor(vals, dtype=arr.dtype, device=arr.device)
     vals = vals.expand((idx.shape[0],) + arr.shape[1:])

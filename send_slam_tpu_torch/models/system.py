@@ -1,28 +1,34 @@
 """The System facade: host orchestration of the monocular tracking path.
 
-Counterpart of ``send_slam_tpu/models/system.py`` for the port's first
-slice: ``track_monocular`` with the multi-reference two-view init
+Counterpart of ``send_slam_tpu/models/system.py`` at the JAX package's
+default tracking configuration with loop closing off:
+``track_monocular`` with the multi-reference two-view init
 (``_try_initialize`` / ``_init_multi`` / ``_commit_init``), the map
-bootstrap, the per-frame step (motion-model prediction, tracking, the
-keyframe decision, keyframe insertion with triangulation, the insert
-BA burst and the amortized one-iteration BA slices), the one-frame-late
-summary handling with the same lag, the same young-map reset at
-``n_kf <= 5`` and the same LOST transition, and the per-keyframe map
-maintenance.
+bootstrap and the init trajectory backfill, the young-map scale-collapse
+probe with its held poses and its retry over the recent images, the
+per-frame step (motion-model prediction, tracking, the keyframe
+decision, keyframe insertion with triangulation, the insert BA burst and
+the amortized one-iteration BA slices), the one-frame-late summary
+handling with the same lag, the young-map reset at ``n_kf <= 5``, the
+LOST transition and relocalization (retrieval candidates re-tracked
+beside a PnP RANSAC), the per-keyframe map maintenance and the queued
+young and wide polish slices with their large-correction chain rebase.
 
 What the JAX package's jitted programs decide with ``lax.cond`` is a
-Python branch here. Randomness (RANSAC minimal sets) comes from a
+Python branch here. Randomness (RANSAC minimal sets) comes from a CPU
 ``torch.Generator`` reset with the session, as the JAX System resets
-its PRNG key.
+its PRNG key; on the CPU, it draws the same numbers for a run on the
+card as for the same run on the CPU. The port compiles nothing ahead of
+a run, so the JAX System's warm-up readiness gate (``_tail_ready``) is
+always open here.
 
-Not in this slice, and refused at construction: the young-map collapse
-probe and retry (``init_collapse_frac`` must be 0), the init backfill
-(``init_backfill`` False), the young/wide/global polish slices
-(``young_ba_at_kf`` and ``wide_ba_every_kf`` 0) and loop closing
+Not ported, and refused at construction: loop closing
 (``loop_min_gap_kf`` must be at least ``max_keyframes``, so no probe can
-fire). Relocalization, the atlas, keyframe compaction and map I/O are
-not ported either: a LOST session stays LOST, and reaching the keyframe
-capacity raises NotImplementedError.
+fire), BA windows over 64 keyframes and pyramid scales other than 1.2.
+Not ported either: the atlas weld, so a relocalization timeout that
+would keep a frozen map (``max_atlas_maps > 0``) raises
+NotImplementedError; keyframe compaction, so reaching the keyframe
+capacity raises; and map I/O.
 """
 
 from __future__ import annotations
@@ -37,10 +43,11 @@ import torch
 from send_slam_tpu_torch.config import EngineConfig
 from send_slam_tpu_torch.device import resolve_device
 from send_slam_tpu_torch.geometry.se3 import (
-    quat_from_rotmat, se3_compose, se3_exp, se3_inverse, se3_log,
+    quat_from_rotmat, se3_compose, se3_exp, se3_inverse, se3_log, so3_exp,
+    so3_log,
 )
 from send_slam_tpu_torch.models.covisibility import (
-    covis_window_ids, cull_redundant_keyframes,
+    covis_window_ids, cull_redundant_keyframes, wide_window_ids,
 )
 from send_slam_tpu_torch.models.frame import Frame, make_frame
 from send_slam_tpu_torch.models.initializer import InitResult, two_view_init
@@ -52,8 +59,13 @@ from send_slam_tpu_torch.models.map_state import (
     MapState, add_landmarks, empty_map, insert_keyframe,
     prune_zero_obs_landmarks, update_landmark_stats,
 )
+from send_slam_tpu_torch.models.relocalize import relocalize
+from send_slam_tpu_torch.models.retrieval import (
+    frame_signature, idf_weights, retrieval_scores,
+)
 from send_slam_tpu_torch.models.tracking import track_frame
 from send_slam_tpu_torch.ops.hamming import Matches
+from send_slam_tpu_torch.ops.orb import stable_topk
 
 # Tracking states (the wire protocol's values, io/protocol.py).
 TRACKING_NO_IMAGES_YET = 0
@@ -100,6 +112,16 @@ def loop_state_from_numpy(d, device=None) -> LoopState:
         for f in dataclasses.fields(LoopState)})
 
 
+class RelocOut(NamedTuple):
+    """Result of the multi-candidate relocalization step; ``use_pnp``
+    says which branch won (the PnP RANSAC or a retrieval candidate)."""
+
+    R: torch.Tensor
+    t: torch.Tensor
+    n_inliers: torch.Tensor
+    use_pnp: torch.Tensor
+
+
 class TrackOutput(NamedTuple):
     """Host-side result of one frame (the pose packet's contents)."""
 
@@ -109,19 +131,15 @@ class TrackOutput(NamedTuple):
     n_inliers: int
     timestamp: float
     n_landmarks: int = -1
+    # Late-emitted poses of earlier frames, (timestamp, position,
+    # orientation) triples: the init backfill and the poses held while
+    # the collapse probe was pending. Trajectory consumers append them.
+    backfill: tuple = ()
 
 
 def _check_slice_config(cfg: EngineConfig) -> None:
     tr, mp = cfg.tracking, cfg.map
     refused = []
-    if tr.init_collapse_frac > 0:
-        refused.append("init_collapse_frac > 0 (collapse probe)")
-    if tr.init_backfill:
-        refused.append("init_backfill (trajectory backfill)")
-    if tr.young_ba_at_kf > 0:
-        refused.append("young_ba_at_kf > 0 (young-map polish)")
-    if tr.wide_ba_every_kf > 0:
-        refused.append("wide_ba_every_kf > 0 (wide polish)")
     if tr.loop_min_gap_kf < mp.max_keyframes:
         refused.append("loop_min_gap_kf < max_keyframes (loop closing)")
     if mp.ba_window > 64:
@@ -135,12 +153,11 @@ def _check_slice_config(cfg: EngineConfig) -> None:
 
 
 def slice_config(cfg: EngineConfig) -> EngineConfig:
-    """``cfg`` with every feature this slice leaves out turned off."""
+    """``cfg`` with loop closing, which the port leaves out, turned
+    off."""
     tr = dataclasses.replace(
-        cfg.tracking, init_collapse_frac=0.0, init_backfill=False,
-        young_ba_at_kf=0, wide_ba_every_kf=0,
-        loop_min_gap_kf=max(cfg.tracking.loop_min_gap_kf,
-                            cfg.map.max_keyframes))
+        cfg.tracking, loop_min_gap_kf=max(cfg.tracking.loop_min_gap_kf,
+                                          cfg.map.max_keyframes))
     return cfg.replace(tracking=tr)
 
 
@@ -166,14 +183,29 @@ class System:
         self.cfg = config
         self.device = resolve_device(device)
         cam = config.camera
+        tr, MK = config.tracking, config.map.max_keyframes
         self._K = torch.tensor(
             [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
             dtype=torch.float32, device=self.device)
-        self._gen = torch.Generator(device=self.device)
-        self._n_init_refs = len(config.tracking.init_ref_gaps)
+        # RANSAC draws come from a CPU generator on every device, so a
+        # card run draws what the same run on the CPU draws.
+        self._gen = torch.Generator()
+        self._n_init_refs = len(tr.init_ref_gaps)
+        self._n_backfill = max(max(tr.init_ref_gaps) - 1, 1)
+        self._wide_cfg = dataclasses.replace(config.map,
+                                             ba_window=min(MK, 64))
         # Frames through make_frame (each runs one FAST launch on the
         # card, over every pyramid level).
         self.frames_extracted = 0
+        # Survives reset(): the collapse detector must not loop forever
+        # on a world whose inits keep committing badly.
+        self._collapse_resets = 0
+        # Session-wide observability (survives reset()): each
+        # collapse-probe verdict, (commit ts, probe ts, velocity ratio,
+        # passed) in session-relative seconds; polish slices run.
+        self.collapse_probes: List[tuple] = []
+        self.polish_slices_run: Dict[str, int] = {"wide": 0, "young": 0}
+        self.last_reloc: Optional[dict] = None
         self.reset()
 
     # ------------------------------------------------------------------
@@ -206,6 +238,17 @@ class System:
         self._lost_frames = 0
         self._last_inliers = 0
         self._n_kf_host = 0        # keyframes ever inserted (monotonic)
+        self._slots_used = 0       # host mirror of the map's n_kf (lagged)
+        # The next keyframe's incoming chain edge crosses a
+        # relocalization (recorded on the keyframe, kf_chain_break).
+        self._reloc_boundary_next_kf = False
+        self._reloc_failures = 0
+        # Polish queue: (kind, lam, prune) slices, one per frame.
+        self._polish_queue: List[tuple] = []
+        self._young_polish_done = False
+        # Set by _collapse_retry after its own reset, cleared by any
+        # other: arms the young one-anchor re-solve.
+        self._had_collapse_reset = False
         self._init_frames: collections.deque = collections.deque(
             maxlen=max(cfg.tracking.init_ref_gaps) + 1)
         self._init_best = None
@@ -218,6 +261,41 @@ class System:
         self._kf_trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
         self.init_attempts = 0
         self.init_commit_ts: Optional[float] = None
+        # Young-map scale-collapse probe: the init pair's baseline
+        # velocity, the streamed positions since the commit, the poses
+        # held while it is pending, and late poses awaiting the next OK
+        # output's backfill field.
+        self._init_v: Optional[float] = None
+        self._collapse_trace: List[tuple] = []
+        self._collapse_active = False
+        self._held_outputs: List[tuple] = []
+        self._backfill_pending: List[tuple] = []
+        # Raw frames (host references) a failed probe re-initializes
+        # from at once.
+        self._recent_imgs: collections.deque = collections.deque(maxlen=10)
+
+    def _collapse_retry(self, ts_rel: float) -> None:
+        """Scale-collapse probe failed: discard the young map, seed the
+        init frame cache from the recent raw images and re-attempt the
+        initialization at once (the session epoch is kept)."""
+        imgs = list(self._recent_imgs)
+        t0 = self._t0
+        self.reset()
+        self._t0 = t0
+        self._had_collapse_reset = True
+        if len(imgs) < 2:
+            return
+        for tsd, g in imgs[:-1]:
+            self._init_frames.append((float(tsd), self._make_frame(g, tsd)))
+        ts_cur, img_cur = imgs[-1]
+        cur = self._make_frame(img_cur, ts_cur)
+        self._try_initialize(cur, float(ts_cur))
+
+    def _init_par_scale(self) -> float:
+        """Parallax-floor multiplier for init acceptance: flat for the
+        first two collapse resets, one boost step from the third."""
+        boost = self.cfg.tracking.init_collapse_par_boost
+        return float(boost) ** min(max(self._collapse_resets - 2, 0), 1)
 
     # ------------------------------------------------------------------
     # Device steps
@@ -272,6 +350,28 @@ class System:
             normal=X / dist[:, None], dist_min=dmin, dist_max=dmax)
         return local_bundle_adjustment(m, self._K, self.cfg.map, iters=10,
                                        n_fixed=1)
+
+    def _backfill_step(self, m: MapState, R_cur, t_cur, alphas,
+                       frames: List[Frame]) -> torch.Tensor:
+        """Track each cached frame between the committed pair against
+        the fresh map from the geodesic interpolation of the pair's
+        relative pose at its time fraction ``alphas`` (B,). Returns the
+        (B, 8) bundle [twc(3), quat(4), n_inliers], read by the host in
+        one copy."""
+        cfg = self.cfg
+        orb, tr, cam = cfg.orb, cfg.tracking, cfg.camera
+        phi = so3_log(R_cur)
+        rows = []
+        for alpha, frame in zip(alphas, frames):
+            r = track_frame(
+                so3_exp(alpha * phi), alpha * t_cur, m.lm_pos, m.lm_desc,
+                m.lm_valid, frame.uv_und, frame.feat.desc, frame.feat.valid,
+                frame.feat.octave, cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.width, cam.height, tr, scale_factor=orb.scale_factor)
+            Rwc, twc = se3_inverse(r.R, r.t)
+            rows.append(torch.cat([twc, quat_from_rotmat(Rwc),
+                                   r.n_inliers.to(torch.float32)[None]]))
+        return torch.stack(rows)
 
     def _frame_step(self, m: MapState, st: LoopState, img, ts,
                     chain_break=False):
@@ -372,12 +472,122 @@ class System:
             m.n_landmarks().reshape(1).to(torch.float32)])
         return m, st_new, summary
 
+    def _reloc_step(self, m: MapState, frame: Frame, sample_idx=None):
+        """Relocalization: the top-3 retrieval candidates each re-track
+        the frame from their keyframe pose (wide window, no rescue),
+        beside a prior-free PnP RANSAC; the most inliers wins.
+        ``sample_idx`` (n_hyp, 6) injects the RANSAC minimal sets.
+        Returns (RelocOut, the top retrieval score)."""
+        cfg = self.cfg
+        orb, tr, cam = cfg.orb, cfg.tracking, cfg.camera
+        sig = frame_signature(frame.feat.desc, frame.feat.valid)
+        idf = idf_weights(m.kf_signature, m.kf_valid)
+        scores = torch.where(
+            m.kf_valid, retrieval_scores(m.kf_signature, sig, idf=idf),
+            torch.full_like(m.kf_signature[:, 0], -1.0))
+        _, top = stable_topk(scores, 3)
+        cands = [track_frame(
+            m.kf_R[c], m.kf_t[c], m.lm_pos, m.lm_desc, m.lm_valid,
+            frame.uv_und, frame.feat.desc, frame.feat.valid,
+            frame.feat.octave, cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+            cam.height, tr, scale_factor=orb.scale_factor,
+            search_radius=64.0, enable_rescue=False) for c in top]
+        nc = torch.stack([r.n_inliers for r in cands])
+        best = cands[int(torch.argmax(nc))]
+        pnp = relocalize(m.lm_pos, m.lm_desc, m.lm_valid, frame.uv_und,
+                         frame.feat.desc, frame.feat.valid, self._K, tr,
+                         generator=self._gen, sample_idx=sample_idx)
+        use_pnp = pnp.ok & (pnp.n_inliers > best.n_inliers)
+        return RelocOut(R=torch.where(use_pnp, pnp.R, best.R),
+                        t=torch.where(use_pnp, pnp.t, best.t),
+                        n_inliers=torch.where(use_pnp, pnp.n_inliers,
+                                              best.n_inliers),
+                        use_pnp=use_pnp), scores[top[0]]
+
     def _maintain_step(self, m: MapState) -> MapState:
         """Keyframe-rate maintenance: zero-obs landmark pruning and
         redundant keyframe culling."""
         m = prune_zero_obs_landmarks(m)
         m, _ = cull_redundant_keyframes(m, max_cull=2)
         return m
+
+    def _newest_kf_delta(self, m_pre: MapState, m_post: MapState):
+        cur = torch.clamp(m_pre.n_kf - 1, 0, m_pre.max_keyframes - 1).long()
+        Rb, tb = m_pre.kf_R[cur], m_pre.kf_t[cur]
+        dR = m_post.kf_R[cur] @ Rb.T
+        return dR, m_post.kf_t[cur] - dR @ tb
+
+    def _polish_slice(self, m: MapState, lam, prune, wcfg, window_ids=None,
+                      n_fixed: int = 2, renorm_baseline: bool = False):
+        """One wide/young BA iteration, the newest keyframe's delta and
+        the on-device flag of a correction large enough to rebase the
+        pose chain (angle or centre move against the last baseline).
+        ``renorm_baseline`` restores the KF0->KF1 baseline about KF0's
+        centre after a one-anchor slice. Returns (map, dR, dt, big)."""
+        tr = self.cfg.tracking
+        MK = m.max_keyframes
+        m2 = local_bundle_adjustment(
+            m, self._K, wcfg, iters=1, damping=lam, prune=prune,
+            window_ids=window_ids, n_fixed=n_fixed)
+
+        def center(mm, i):
+            return -(mm.kf_R[i].T @ mm.kf_t[i][:, None])[:, 0]
+
+        if renorm_baseline:
+            C0 = center(m2, 0)
+            b_pre = torch.linalg.norm(center(m, 1) - center(m, 0))
+            b_post = torch.clamp(torch.linalg.norm(center(m2, 1) - C0),
+                                 min=1e-9)
+            s = b_pre / b_post
+            C_all = -torch.einsum('kij,kj->ki', m2.kf_R.transpose(1, 2),
+                                  m2.kf_t)
+            kf_t_new = -torch.einsum('kij,kj->ki', m2.kf_R,
+                                     C0 + s * (C_all - C0))
+            m2 = m2.replace(
+                kf_t=torch.where(m2.kf_valid[:, None], kf_t_new, m2.kf_t),
+                lm_pos=torch.where(m2.lm_valid[:, None],
+                                   C0 + s * (m2.lm_pos - C0), m2.lm_pos),
+                lm_dist_min=m2.lm_dist_min * s,
+                lm_dist_max=m2.lm_dist_max * s)
+        dR, dt = self._newest_kf_delta(m, m2)
+        cur = torch.clamp(m.n_kf - 1, 0, MK - 1).long()
+        prev = torch.clamp(m.n_kf - 2, 0, MK - 1).long()
+        Cb, Ca, Cp = center(m, cur), center(m2, cur), center(m, prev)
+        base = torch.clamp(torch.linalg.norm(Cb - Cp), min=1e-6)
+        ang = torch.arccos(torch.clamp((torch.trace(dR) - 1.0) / 2.0,
+                                       -1.0, 1.0))
+        big = (ang > np.deg2rad(tr.polish_rebase_min_deg)) \
+            | (torch.linalg.norm(Ca - Cb)
+               > tr.polish_rebase_baseline_frac * base)
+        return m2, dR, dt, big
+
+    def _wide_slice(self, m: MapState, lam, prune):
+        """Wide polish slice over the hybrid recent + covisible window
+        (or the recency window, per ``wide_ba_covis_window``)."""
+        W = self._wide_cfg.ba_window
+        ids = (wide_window_ids(m, W)[0]
+               if self.cfg.tracking.wide_ba_covis_window else None)
+        return self._polish_slice(m, lam, prune, self._wide_cfg,
+                                  window_ids=ids)
+
+    def _young_slice(self, m: MapState, lam, prune):
+        """Young-map re-solve: a one-anchor recency-window slice with
+        the baseline renormalized."""
+        return self._polish_slice(m, lam, prune, self._wide_cfg,
+                                  n_fixed=1, renorm_baseline=True)
+
+    @staticmethod
+    def _rebase_st(st: LoopState, dR, dt) -> LoopState:
+        return st.replace(R=dR @ st.R, t=dR @ st.t + dt,
+                          R2=dR @ st.R2, t2=dR @ st.t2 + dt)
+
+    def _rebase_st_cond(self, st: LoopState, dR, dt, big) -> LoopState:
+        """``_rebase_st`` where the on-device flag ``big`` is set, the
+        carried state unchanged elsewhere (no host read)."""
+        st2 = self._rebase_st(st, dR, dt)
+        return LoopState(**{
+            f.name: torch.where(big, getattr(st2, f.name), getattr(st, f.name))
+            for f in dataclasses.fields(LoopState)})
 
     # ------------------------------------------------------------------
     # State machine
@@ -388,17 +598,30 @@ class System:
         if self._t0 is None:
             self._t0 = float(timestamp)
         ts_dev = float(timestamp) - self._t0
+        self._recent_imgs.append((ts_dev, gray))
         if self.state in (TRACKING_OK, TRACKING_RECENTLY_LOST):
             return self._track_pipelined(gray, timestamp, ts_dev)
 
         self._flush_pipeline()
         if self.state in (TRACKING_NO_IMAGES_YET, TRACKING_NOT_INITIALIZED):
             self._try_initialize(self._make_frame(gray, ts_dev), ts_dev)
+        elif self.state == TRACKING_LOST:
+            self._relocalize(self._make_frame(gray, ts_dev), timestamp)
         if self.state == TRACKING_OK:
             pos, quat = self._twc()
+            if self._collapse_active:
+                # A commit under a pending collapse probe: hold the pose
+                # and keep reporting "initializing".
+                self._held_outputs.append((timestamp, pos, quat))
+                out = TrackOutput(TRACKING_NOT_INITIALIZED, None, None,
+                                  self._last_inliers, timestamp)
+                self._last_out = out
+                return out
             self._trajectory.append((timestamp, pos, quat))
+            bf = tuple(self._backfill_pending)
+            self._backfill_pending = []
             out = TrackOutput(TRACKING_OK, pos, quat, self._last_inliers,
-                              timestamp)
+                              timestamp, backfill=bf)
             self._last_out = out
             return out
         return TrackOutput(self.state, None, None, 0, timestamp)
@@ -406,27 +629,62 @@ class System:
     def _commit_init(self, ref_frame: Frame, cur_frame: Frame,
                      res: InitResult, timestamp: float,
                      n_good=None) -> None:
+        tr = self.cfg.tracking
         self.map = self._bootstrap_map(self.map, ref_frame, cur_frame, res)
         self._st = self._fresh_loop_state().replace(
             R=res.R, t=res.t, R2=res.R, t2=res.t,
             inliers_at_kf=res.n_good.to(torch.int32))
         self.state = TRACKING_OK
         self._n_kf_host = 2
+        self._slots_used = 2
         self._last_inliers = int(n_good if n_good is not None
                                  else res.n_good)
         self._init_best = None
         self._init_prev_cands = None
         self._init_tdir_rejects = 0
+        cached = list(self._init_frames)     # for the backfill, below
         self._init_frames.clear()
         self.init_commit_ts = timestamp
         t0 = self._t0 or 0.0
         ts_ref = t0 + float(ref_frame.timestamp)
         self._kf_trajectory.append(
             (ts_ref, np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0])))
+        ts_cur = t0 + float(cur_frame.timestamp)
         Rwc, twc = se3_inverse(res.R, res.t)
+        twc_np = twc.cpu().numpy()
         self._kf_trajectory.append(
-            (t0 + float(cur_frame.timestamp), twc.cpu().numpy(),
-             quat_from_rotmat(Rwc).cpu().numpy()))
+            (ts_cur, twc_np, quat_from_rotmat(Rwc).cpu().numpy()))
+        # Arm the young-map scale-collapse probe: the init pair's own
+        # baseline velocity is the yardstick.
+        dt_init = max(ts_cur - ts_ref, 1.0 / 120.0)
+        self._init_v = float(np.linalg.norm(twc_np)) / dt_init
+        self._collapse_trace = []
+        self._collapse_active = (
+            tr.init_collapse_frac > 0.0
+            and self._collapse_resets < tr.init_collapse_max_resets)
+
+        # Trajectory backfill: the cached frames strictly between the
+        # committed pair, tracked against the fresh map; their poses
+        # ride the probe hold like the commit frame's own.
+        ts_ref_rel, ts_cur_rel = ts_ref - t0, ts_cur - t0
+        between = [(tf, f) for tf, f in cached
+                   if ts_ref_rel < tf < ts_cur_rel][-self._n_backfill:]
+        if tr.init_backfill and between:
+            span = max(ts_cur_rel - ts_ref_rel, 1e-6)
+            alphas = torch.tensor([(tf - ts_ref_rel) / span
+                                   for tf, _ in between],
+                                  dtype=torch.float32, device=self.device)
+            bundle = self._backfill_step(
+                self.map, res.R, res.t, alphas,
+                [f for _, f in between]).cpu().numpy()
+            sink = (self._held_outputs if self._collapse_active
+                    else self._backfill_pending)
+            for k, (tf, _f) in enumerate(between):
+                if bundle[k, 7] >= tr.min_track_matches:
+                    sink.append((t0 + tf, bundle[k, 0:3].copy(),
+                                 bundle[k, 3:7].copy()))
+            if not self._collapse_active:
+                self._trajectory.extend(self._backfill_pending)
 
     def _try_initialize(self, frame: Frame, timestamp: float) -> None:
         """Multi-reference init: score the frame against the cached
@@ -450,7 +708,7 @@ class System:
             idxs.append(idxs[0])
         refs = [cache[j] for j in idxs]
         res, probes = self._init_multi(_stack_frames([r[1] for r in refs]),
-                                       frame, 1.0)
+                                       frame, self._init_par_scale())
         self.init_attempts += 1
         p = probes.cpu().numpy().reshape(self._n_init_refs, 7)
 
@@ -516,10 +774,21 @@ class System:
 
     def _track_pipelined(self, gray, timestamp: float,
                          ts_dev: float) -> TrackOutput:
-        """Run this frame's step; act on the summary ``pipeline_depth``
-        frames late, as the JAX System does."""
+        """Run one queued polish slice, then this frame's step; act on
+        the summary ``pipeline_depth`` frames late, as the JAX System
+        does."""
+        if self._polish_queue:
+            kind, lam, prune = self._polish_queue.pop(0)
+            step = {"wide": self._wide_slice, "young": self._young_slice}[kind]
+            self.map, dR, dt, big = step(self.map, lam, prune)
+            self.polish_slices_run[kind] += 1
+            # Rebase the speculative chain only on a large correction.
+            self._st = self._rebase_st_cond(self._st, dR, dt, big)
+
         st_prev = self._st
-        m2, st2, summary = self._frame_step(self.map, self._st, gray, ts_dev)
+        m2, st2, summary = self._frame_step(
+            self.map, self._st, gray, ts_dev,
+            chain_break=self._reloc_boundary_next_kf)
         self._pending.append(dict(ts=timestamp, st_prev=st_prev,
                                   summary=summary))
         self.map, self._st = m2, st2
@@ -530,8 +799,14 @@ class System:
             self._ready.append(self._process_lagged())
         if self._ready:
             return self._ready.pop(0)
+        # Pipeline warming up: repeat the last output with its own
+        # timestamp but without its backfill (late poses are one-shot).
         if self._last_out is not None:
+            if self._last_out.backfill:
+                self._last_out = self._last_out._replace(backfill=())
             return self._last_out
+        # No output yet this session (a collapse-retry commit): never
+        # report TRACKING_OK without a pose.
         st = (TRACKING_NOT_INITIALIZED if self.state == TRACKING_OK
               else self.state)
         return TrackOutput(st, None, None, 0, timestamp)
@@ -563,24 +838,72 @@ class System:
         self._last_inliers = n_inl
         self._lost_frames = 0
         self.state = TRACKING_OK
+
+        # Young-map scale-collapse probe, one-shot over the first full
+        # window after the commit: the streamed velocity against the
+        # init pair's. On a collapse the young map is discarded and the
+        # init retried; while it is pending, poses are held.
+        if self._collapse_active and self._init_v:
+            ts_rel = ts - (self._t0 or 0.0)
+            age = ts_rel - (self.init_commit_ts or 0.0)
+            trc = self._collapse_trace
+            trc.append((ts_rel, np.asarray(pos, float)))
+            if age > tr.init_collapse_horizon_s:
+                self._collapse_active = False
+            else:
+                win = (tr.init_collapse_retry_window_s
+                       if self._collapse_resets > 0
+                       else tr.init_collapse_window_s)
+                span = ts_rel - trc[0][0]
+                if span >= win:
+                    v_est = float(np.linalg.norm(
+                        trc[-1][1] - trc[0][1])) / span
+                    ratio = v_est / max(self._init_v, 1e-9)
+                    self._collapse_active = False
+                    self.collapse_probes.append(
+                        (self.init_commit_ts, ts_rel, ratio,
+                         ratio >= tr.init_collapse_frac))
+                    if ratio < tr.init_collapse_frac:
+                        self._collapse_resets += 1
+                        self._collapse_retry(ts_rel)
+                        # The new map's probe is pending even when the
+                        # retry committed at once.
+                        return TrackOutput(TRACKING_NOT_INITIALIZED,
+                                           None, None, 0, ts)
+            if not self._collapse_active:
+                # Passed (or expired): the held poses are real; the
+                # reset budget re-arms.
+                self._collapse_resets = 0
+                self._trajectory.extend(self._held_outputs)
+                self._backfill_pending.extend(self._held_outputs)
+                self._held_outputs = []
+
         if s[S_KF] > 0.5:
-            self._on_keyframe_inserted(ts, pos, quat)
+            self._on_keyframe_inserted(int(s[S_SLOT]), n_kf, ts, pos, quat)
         if n_kf >= self.cfg.map.max_keyframes - 2:
             raise NotImplementedError(
                 "keyframe table full: compaction is not ported yet")
+
+        if self._collapse_active:
+            self._held_outputs.append((ts, np.asarray(pos),
+                                       np.asarray(quat)))
+            out = TrackOutput(TRACKING_NOT_INITIALIZED, None, None, n_inl,
+                              ts)
+            self._last_out = out
+            return out
+
         self._trajectory.append((ts, pos, quat))
+        bf = tuple(self._backfill_pending)
+        self._backfill_pending = []
         out = TrackOutput(TRACKING_OK, pos, quat, n_inl, ts,
-                          n_landmarks=int(s[S_NLM]))
+                          n_landmarks=int(s[S_NLM]), backfill=bf)
         self._last_out = out
         return out
 
-    def _on_keyframe_inserted(self, ts: float, pos, quat) -> None:
-        self._n_kf_host += 1
-        self._kf_trajectory.append((ts, np.asarray(pos), np.asarray(quat)))
-        self.map = self._maintain_step(self.map)
-
-    def _flush_pipeline(self) -> List[TrackOutput]:
-        """Drain in-flight frames (state transitions, shutdown)."""
+    def _flush_pipeline(self, final: bool = False) -> List[TrackOutput]:
+        """Drain in-flight frames (state transitions, shutdown). With
+        ``final`` (session end), also flush the poses a pending
+        collapse probe holds: the probe never failed."""
         outs = list(self._ready)
         self._ready.clear()
         while self._pending:
@@ -588,7 +911,93 @@ class System:
                 self._pending.clear()
                 break
             outs.append(self._process_lagged())
+        if final and self._held_outputs:
+            bf = tuple(self._held_outputs)
+            self._trajectory.extend(self._held_outputs)
+            self._held_outputs = []
+            outs.append(TrackOutput(TRACKING_NOT_INITIALIZED, None, None,
+                                    0, bf[-1][0], backfill=bf))
         return outs
+
+    def _relocalize(self, frame: Frame, timestamp: float) -> None:
+        """Pose recovery against the map. On success tracking resumes
+        from the recovered pose; after ``atlas_reloc_patience`` failures
+        on a map of ``atlas_min_kf`` keyframes it is frozen."""
+        tr = self.cfg.tracking
+        res, _score = self._reloc_step(self.map, frame)
+        n = int(res.n_inliers)
+        self.last_reloc = dict(ok=n >= tr.reloc_min_matches, inliers=n,
+                               branch="pnp" if bool(res.use_pnp)
+                               else "retrieval")
+        if n >= tr.reloc_min_matches:
+            self._st = self._st.replace(
+                R=res.R, t=res.t, R2=res.R, t2=res.t,
+                has_vel=torch.tensor(False, device=self.device))
+            self.state = TRACKING_OK
+            self._last_inliers = n
+            self._lost_frames = 0
+            self._reloc_failures = 0
+            self._reloc_boundary_next_kf = True
+            return
+        self._reloc_failures += 1
+        if (self._reloc_failures >= tr.atlas_reloc_patience
+                and self._slots_used >= tr.atlas_min_kf):
+            self._freeze_to_atlas()
+
+    def _freeze_to_atlas(self) -> None:
+        """Drop the active map and start a fresh one, keeping the
+        session's trajectories, epoch, RANSAC stream and init counters.
+        Keeping the frozen map needs the atlas weld, which is not
+        ported: with ``max_atlas_maps > 0`` this raises."""
+        if self.cfg.tracking.max_atlas_maps > 0:
+            raise NotImplementedError(
+                "freezing a map into the atlas needs the atlas weld "
+                "(models/atlas.py weld_maps), which is not ported yet; "
+                "set max_atlas_maps = 0 to drop the map instead")
+        traj, kf_traj = self._trajectory, self._kf_trajectory
+        gen_state = self._gen.get_state()
+        t0 = self._t0
+        n_init, ts_init = self.init_attempts, self.init_commit_ts
+        self.reset()
+        self._trajectory, self._kf_trajectory = traj, kf_traj
+        self._gen.set_state(gen_state)
+        self.init_attempts, self.init_commit_ts = n_init, ts_init
+        self._t0 = t0
+
+    def _enqueue_polish(self, kind: str, n_slices: int) -> None:
+        """Queue ``n_slices`` one-iteration slices with a halving
+        damping (floored at 1%); pruning on the last slice only."""
+        base = self.cfg.tracking.ba_slice_damping
+        self._polish_queue = [
+            (kind, max(base * (0.5 ** i), base * 1e-2), i == n_slices - 1)
+            for i in range(n_slices)]
+
+    def _on_keyframe_inserted(self, kf_slot: int, n_kf: int, ts: float,
+                              pos, quat) -> None:
+        """Keyframe-rate host reactions to an insert, learned from the
+        lagged summary: maintenance, and the young and wide polish
+        scheduling. (The JAX System also gates these on its warm-up
+        readiness, which is always set here.)"""
+        tr = self.cfg.tracking
+        self._n_kf_host += 1
+        self._slots_used = n_kf
+        self._reloc_boundary_next_kf = False
+        self._kf_trajectory.append((ts, np.asarray(pos), np.asarray(quat)))
+        self.map = self._maintain_step(self.map)
+        # Young one-anchor re-solve, once per map, after a collapse
+        # reset, deferred while a probe is pending. (No map-age bound, as
+        # in the reference.)
+        if tr.young_ba_at_kf > 0 and not self._young_polish_done \
+                and self._had_collapse_reset \
+                and n_kf >= tr.young_ba_at_kf \
+                and not self._collapse_active \
+                and not self._polish_queue:
+            self._young_polish_done = True
+            self._enqueue_polish("young", tr.young_ba_slices)
+        if tr.wide_ba_every_kf > 0 \
+                and self._n_kf_host % tr.wide_ba_every_kf == 0 \
+                and not self._polish_queue:
+            self._enqueue_polish("wide", tr.wide_ba_slices)
 
     # ------------------------------------------------------------------
     # Outputs
@@ -622,8 +1031,9 @@ class System:
         return list(self._trajectory)
 
     def shutdown(self) -> List[TrackOutput]:
-        """Final drain of the in-flight frames."""
-        return self._flush_pipeline()
+        """Final drain: the in-flight frames and the poses held by a
+        pending collapse probe. Idempotent."""
+        return self._flush_pipeline(final=True)
 
     def save_map(self, path=None):
         raise NotImplementedError("map I/O is not ported yet")

@@ -67,7 +67,23 @@ def test_system_without_card_raises():
 
 
 def test_system_refuses_unported_features():
-    from send_slam_tpu_torch.config import EngineConfig
-    from send_slam_tpu_torch.models.system import System
-    with pytest.raises(NotImplementedError, match="collapse"):
+    """Only loop closing, BA windows over 64 keyframes and other
+    pyramid scales are refused; the rest of the default tracking
+    configuration constructs."""
+    import dataclasses
+    from send_slam_tpu_torch.config import EngineConfig, MapConfig, OrbConfig
+    from send_slam_tpu_torch.models.system import System, slice_config
+    with pytest.raises(NotImplementedError, match="loop closing"):
         System(EngineConfig(), device="cpu")
+    cfg = slice_config(EngineConfig())
+    ref = EngineConfig().tracking
+    assert cfg.tracking == dataclasses.replace(
+        ref, loop_min_gap_kf=cfg.map.max_keyframes)
+    for field in ("init_collapse_frac", "init_backfill", "young_ba_at_kf",
+                  "wide_ba_every_kf", "max_atlas_maps"):
+        assert getattr(cfg.tracking, field) == getattr(ref, field)
+    System(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="chunked BA"):
+        System(cfg.replace(map=MapConfig(ba_window=65)), device="cpu")
+    with pytest.raises(NotImplementedError, match="scale_factor"):
+        System(cfg.replace(orb=OrbConfig(scale_factor=1.3)), device="cpu")

@@ -127,8 +127,16 @@ def test_port_system_tracks(port_run, seq):
 
 def test_lost_transitions_and_young_map_reset(seq):
     """Featureless frames: a young map (<= 5 keyframes) resets to
-    re-initialize; an older one goes RECENTLY_LOST, then LOST, and stays
-    LOST (relocalization is not in this slice)."""
+    re-initialize; an older one goes RECENTLY_LOST, then LOST, and the
+    next real frame relocalizes it, as it does the JAX System fed the
+    same frames. The port's recovered pose is the JAX relocalization
+    step's on the port's own map (1e-4, inliers +-2). The blank frames
+    stay below the atlas patience: no map is frozen."""
+    import jax
+    import jax.numpy as jnp
+    from send_slam_tpu.geometry.se3 import se3_inverse as jinv
+    from send_slam_tpu.models.map_state import MapState as JMap
+    from send_slam_tpu_torch.models.map_state import map_to_numpy
     ts, imgs, _ = seq
     blank = np.full_like(imgs[0], 20)
     s = tsys.System(engine_cfg(tc), device="cpu")
@@ -142,14 +150,28 @@ def test_lost_transitions_and_young_map_reset(seq):
         s.state == tsys.TRACKING_NOT_INITIALIZED
     assert int(s.map.n_kf) == 0
 
-    s = tsys.System(engine_cfg(tc), device="cpu")
-    for k in range(N_FRAMES):
-        s.track_monocular(imgs[k], float(ts[k]))
-    assert int(s.map.n_kf) > 5
     t_last = float(ts[-1])
-    states = [s.track_monocular(blank, t_last + 0.03 * i).tracking_state
-              for i in range(1, 17)]
-    assert tsys.TRACKING_RECENTLY_LOST in states
-    assert states[-1] == tsys.TRACKING_LOST
-    assert s.track_monocular(imgs[-1], t_last + 1.0).tracking_state \
-        == tsys.TRACKING_LOST
+    js = JSystem(engine_cfg(jc))
+    s = tsys.System(engine_cfg(tc), device="cpu")
+    for sys_ in (js, s):
+        for k in range(N_FRAMES):
+            sys_.track_monocular(imgs[k], float(ts[k]))
+        assert int(sys_.map.n_kf) > 5
+        states = [sys_.track_monocular(blank, t_last + 0.03 * i)
+                  .tracking_state for i in range(1, 17)]
+        assert tsys.TRACKING_RECENTLY_LOST in states
+        assert states[-1] == tsys.TRACKING_LOST
+        assert sys_._reloc_failures < sys_.cfg.tracking.atlas_reloc_patience
+    m_lost = map_to_numpy(s.map)
+    outs = [sys_.track_monocular(imgs[-1], t_last + 1.0) for sys_ in (js, s)]
+    assert [o.tracking_state for o in outs] == [J_OK, tsys.TRACKING_OK]
+    assert s.last_reloc["branch"] == "retrieval"
+    jf = js._make_frame(jnp.asarray(imgs[-1], jnp.float32), t_last + 1.0
+                        - s._t0)
+    ref, _ = js._reloc_step(JMap(**{k: jnp.asarray(v)
+                                    for k, v in m_lost.items()}),
+                            jf, jax.random.PRNGKey(0))
+    np.testing.assert_allclose(outs[1].position,
+                               np.asarray(jinv(ref.R, ref.t)[1]), atol=1e-4)
+    assert abs(outs[1].n_inliers - int(ref.n_inliers)) <= 2
+    assert outs[1].n_inliers >= s.cfg.tracking.reloc_min_matches
