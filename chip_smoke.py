@@ -23,9 +23,9 @@ Phases, each printing one JSON line:
    (the plain path) on one 640x480 frame;
 5. main_path: System.track_monocular at the flagship configuration
    (640x480, 1250 features, 8 levels, 256 keyframes, 16384 landmarks,
-   BA window 8) with the JAX package's default tracking options and
-   loop closing off (slice_config) over 90 frames of the synthetic bench
-   scene, with the kernel's launch count read around the run (one
+   BA window 8) with the JAX package's default options, loop closing on,
+   over 90 frames of the synthetic bench scene (too few keyframes for a
+   loop probe), with the kernel's launch count read around the run (one
    launch per make_frame, collapse retries included). Poses are counted
    as bench.py counts them: live OK outputs, every backfill triple and
    the shutdown drain;
@@ -43,6 +43,23 @@ Phases, each printing one JSON line:
    until it is LOST, then frames of mapped territory; it must be
    TRACKING_OK again within 5 frames (its Sim(3)-aligned position
    error, the winning branch and the inliers are printed);
+9. loop_path: the same configuration on the long bench's revisit scene
+   (bench.py SLAM_BENCH_LONG: the seed-11 world on trajectory_laps with
+   1000 frames over 6 laps), its first 260 frames, or 334 (two laps)
+   when no closure has been applied by frame 260, with the launch count
+   read around the run: every loop attempt with its frame, the frame of
+   the first applied closure, the keyframe ATE just before it and at the
+   end, the streamed ATE, tracked poses, ms per call of the loop
+   programs, the device memory peak of each global slice. It fails
+   unless a closure is applied, 8 global slices run and tracking is OK
+   on 80% of the frames after the first apply;
+10. loop_parity: the card's map at the first verified closure goes to a
+   card System and a CPU System: _loop_sim3 with the same injected
+   Gumbel draws (verdict, candidate and match count exact, inliers +-2,
+   s/R/t 1e-4), _loop_apply with the run's LoopSim3 (keyframe poses and
+   landmarks 1e-3, both reprojection medians 1e-3 relative) and the
+   run's first _global_slice (1e-3); on the card, _loop_apply and
+   _global_slice repeated from the same inputs must be bit-equal;
 
 then the kernels summary line and, last, {"ok": true, "device": ...}.
 Any failed check exits non-zero; a watchdog ends the run after 290 s.
@@ -51,6 +68,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -67,6 +85,14 @@ N_FRAMES = 90
 MIN_TRACKED = 30
 PARITY_FRAMES = (30, 55, 80)    # replay frames whose carried state is held
 RELOC_FRAMES = 5                # mapped frames allowed to relocalize
+# The loop session: the long bench's scene and trajectory, cut to the
+# first LOOP_FRAMES frames, or LOOP_FRAMES_MAX (two of its six laps) when
+# no closure has been applied by then.
+LOOP_TRAJ_FRAMES, LOOP_LAPS = 1000, 6
+LOOP_FRAMES, LOOP_FRAMES_MAX = 260, 334
+LOOP_MIN_OK_AFTER = 0.8         # tracked share of frames after the apply
+LOOP_PROGRAMS = ("_loop_candidate", "_loop_sim3", "_loop_apply",
+                 "_global_slice")
 # H100 SXM (NVIDIA data sheet): HBM bandwidth, and fp32 outside the
 # tensor cores, 67 TFLOP/s = 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz.
 PEAK_BYTES_S = 3.35e12
@@ -371,14 +397,15 @@ def frontend_check(torch, make_frame, cfg, img):
                 desc_rows_differing=desc_rows)
 
 
-def drive(torch, system, frames, ts, after_frame=None):
-    """Feed the frames and drain at shutdown; count poses as bench.py
-    does (live OK outputs, backfill triples, the shutdown drain).
-    Returns the emitted (timestamp, position, orientation) list in
-    emission order, the time-ordered estimate and the per-frame ms of
-    live OK frames (each frame ends in a device sync)."""
+def drive(torch, system, frames, ts, after_frame=None, stop=None):
+    """Feed the frames (until ``stop(k, system)`` says so) and drain at
+    shutdown; count poses as bench.py does (live OK outputs, backfill
+    triples, the shutdown drain). Returns the emitted (timestamp,
+    position, orientation) list in emission order, the time-ordered
+    estimate, each frame's tracking state and the per-frame ms of live
+    OK frames (each frame ends in a device sync)."""
     from send_slam_tpu_torch.models.system import TRACKING_OK
-    emitted, t_ok, live, backfilled = [], [], 0, 0
+    emitted, t_ok, live, backfilled, states = [], [], 0, 0, []
     t_run = time.perf_counter()
 
     def take(out):
@@ -390,19 +417,24 @@ def drive(torch, system, frames, ts, after_frame=None):
         emitted.extend(out.backfill)
 
     for k in range(len(frames)):
+        img = frames[k]
         t0 = time.perf_counter()
-        out = system.track_monocular(frames[k], float(ts[k]))
+        out = system.track_monocular(img, float(ts[k]))
         torch.cuda.synchronize()
         if out.tracking_state == TRACKING_OK:
             t_ok.append((time.perf_counter() - t0) * 1e3)
         take(out)
+        states.append(out.tracking_state)
         if after_frame is not None:
             after_frame(k, system)
+        if stop is not None and stop(k, system):
+            break
     for out in system.shutdown():
         take(out)
     torch.cuda.synchronize()
     order = np.argsort(np.asarray([e[0] for e in emitted]), kind="stable")
     return dict(emitted=emitted, live=live, backfilled=backfilled, t_ok=t_ok,
+                states=states,
                 est_ts=[emitted[i][0] for i in order],
                 est_pos=np.asarray([emitted[i][1] for i in order],
                                    np.float64).reshape(-1, 3),
@@ -577,6 +609,257 @@ def reloc_phase(system, frames, ts, gt, est_ts, est_pos):
 
 
 
+class Rendered:
+    """Frames of a trajectory, rendered on first use (a 640x480 render
+    takes tens of ms on the host)."""
+
+    def __init__(self, world, Rs, tls, n):
+        self.world, self.Rs, self.tls, self.n = world, Rs, tls, n
+        self._cache = {}
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, k):
+        if k not in self._cache:
+            self._cache[k] = np.round(self.world.render(
+                self.Rs[k], self.tls[k])).astype(np.uint8)
+        return self._cache[k]
+
+
+def kf_ate(system, ts, gt):
+    from send_slam_tpu_torch.io.evaluate import ate_rmse
+    kts, kpos, _ = system.keyframe_poses()
+    return ate_rmse(kts, kpos, ts, gt) if len(kts) >= 3 else float("inf")
+
+
+def loop_path(torch, System, cfg, fast_cuda):
+    """Phase 9: the revisit session on the card, with the loop programs
+    timed and the inputs of the first verified closure, its apply and
+    its first global slice kept for loop_parity."""
+    from send_slam_tpu_torch.io.evaluate import (
+        associate, ate_rmse, umeyama_alignment,
+    )
+    from send_slam_tpu_torch.models.system import TRACKING_OK
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+    world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
+                           fy=520.0, seed=11)
+    ts, Rs, tls = world.trajectory_laps(n_frames=LOOP_TRAJ_FRAMES,
+                                        laps=LOOP_LAPS)
+    ts, Rs, tls = ts[:LOOP_FRAMES_MAX], Rs[:LOOP_FRAMES_MAX], \
+        tls[:LOOP_FRAMES_MAX]
+    frames = Rendered(world, Rs, tls, LOOP_FRAMES_MAX)
+    gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
+
+    system = System(cfg, device="cuda")
+    ms = time_calls(torch, system, LOOP_PROGRAMS)
+    keep = dict(sim3=[], apply=None, slice=None, peaks=[])
+    frame_now = [0]
+
+    def wrap(name, fn):
+        def call(*a):
+            if name == "_loop_apply" and keep["apply"] is None:
+                keep["apply"] = dict(args=a, frame=frame_now[0],
+                                     kf_ate_before=kf_ate(system, ts, gt))
+            if name == "_global_slice":
+                if keep["slice"] is None:
+                    keep["slice"] = dict(args=a, frame=frame_now[0])
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            out = fn(*a)
+            if name == "_global_slice":
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                keep["peaks"].append(dict(peak_bytes=peak,
+                                          above_base_bytes=peak - base))
+            if name == "_loop_sim3":
+                keep["sim3"].append(dict(args=a, out=out,
+                                         frame=frame_now[0]))
+            return out
+        return call
+
+    for n in ("_loop_sim3", "_loop_apply", "_global_slice"):
+        setattr(system, n, wrap(n, getattr(system, n)))
+
+    attempts = []
+
+    def after_frame(k, s):
+        frame_now[0] = k + 1
+        while len(attempts) < len(s.loop_attempts):
+            attempts.append(dict(frame=k, attempt=list(
+                s.loop_attempts[len(attempts)])))
+
+    def stop(k, s):
+        return k + 1 >= LOOP_FRAMES and s.loops_closed > 0
+
+    fast_cuda.launches = 0
+    system.frames_extracted = 0
+    run = drive(torch, system, frames, ts, after_frame=after_frame,
+                stop=stop)
+    launches, n_extracted = fast_cuda.launches, system.frames_extracted
+    n_run = len(run["states"])
+    applied = [a for a in attempts if a["attempt"][3] is True]
+    est_ts, pos = run["est_ts"], run["est_pos"]
+    ia, ib = associate(np.asarray(est_ts), ts[:n_run])
+    res = dict(
+        phase="loop_path",
+        scene=f"SyntheticWorld(n_points=900, 640x480, fx=fy=520, seed=11)."
+              f"trajectory_laps(n_frames={LOOP_TRAJ_FRAMES}, "
+              f"laps={LOOP_LAPS}), first {n_run} frames",
+        frames=n_run, loop_attempts=attempts,
+        first_apply_frame=(keep["apply"] or {}).get("frame"),
+        first_applied_verdict_frame=applied[0]["frame"] if applied else None,
+        loops_closed=system.loops_closed,
+        kf_ate_before_first_apply_m=(keep["apply"] or {}).get(
+            "kf_ate_before"),
+        kf_ate_end_m=kf_ate(system, ts[:n_run], gt[:n_run]),
+        streamed_ate_m=(ate_rmse(est_ts, pos, ts[:n_run], gt[:n_run])
+                        if len(est_ts) >= 3 else float("inf")),
+        # Metres of the scene per map unit (the Sim(3) alignment's scale).
+        streamed_sim3_scale=(umeyama_alignment(pos[ia], gt[:n_run][ib])[0]
+                             if len(ia) >= 3 else None),
+        tracked=len(est_ts), tracked_live=run["live"],
+        backfilled=run["backfilled"], tracked_unique=len(set(est_ts)),
+        keyframes=run["keyframes"], landmarks=run["landmarks"],
+        polish_slices=run["polish_slices"],
+        ms_per_call=ms, global_slice_memory=keep["peaks"],
+        frames_through_make_frame=n_extracted, fast_launches=launches,
+        median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
+                                     if len(run["t_ok"]) > 1 else None),
+        seconds=run["seconds"])
+    if keep["apply"] is not None:
+        k0 = keep["apply"]["frame"]
+        after = run["states"][k0:]
+        res["ok_share_after_first_apply"] = (
+            sum(st == TRACKING_OK for st in after) / max(len(after), 1))
+    emit(res)
+    if launches != n_extracted or launches == 0:
+        fail(f"loop path: {launches} FAST launches for {n_extracted} "
+             "frames (expected one per make_frame)")
+    if not applied:
+        fail(f"no loop closure applied in {n_run} frames "
+             f"(attempts: {attempts})")
+    if run["polish_slices"]["global"] < 8:
+        fail(f"{run['polish_slices']['global']} global slices ran after "
+             "the closure (expected 8)")
+    if res["ok_share_after_first_apply"] < LOOP_MIN_OK_AFTER:
+        fail(f"tracking OK on {res['ok_share_after_first_apply']:.2f} of "
+             f"the frames after the first apply (< {LOOP_MIN_OK_AFTER})")
+    if not (np.isfinite(pos).all() and np.isfinite(res["kf_ate_end_m"])):
+        fail("loop path: non-finite trajectory or ATE")
+    verified = [c for c in keep["sim3"] if bool(c["out"][0].ok)]
+    return res, dict(sim3=verified[0], apply=keep["apply"],
+                     slice=keep["slice"])
+
+
+def _maps_equal(a, b):
+    from send_slam_tpu_torch.models.map_state import MapState
+    return all(getattr(a, f.name).equal(getattr(b, f.name))
+               for f in dataclasses.fields(MapState))
+
+
+def _rel_err(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-9)
+
+
+def loop_parity(torch, System, cfg, kept):
+    """Phase 10: the loop programs on the card against the CPU from the
+    card's state at the first verified closure, and their repeats on
+    the card."""
+    from send_slam_tpu_torch.models.loop_closing import LoopSim3, N_HYP
+    from send_slam_tpu_torch.models.map_state import (
+        map_from_numpy, map_to_numpy,
+    )
+    from send_slam_tpu_torch.models.sim3_solver import (
+        Sim3Result, gumbel_noise,
+    )
+    sides = dict(cuda=System(cfg, device="cuda"),
+                 cpu=System(cfg, device="cpu"))
+    card_ms = time_calls(torch, sides["cuda"], LOOP_PROGRAMS[1:])
+    m_sim3, kf, cands, _ = kept["sim3"]["args"]
+    m_sim3 = map_to_numpy(m_sim3)
+    cands = cands.cpu()
+    noise = gumbel_noise(torch.Generator().manual_seed(7),
+                         (cands.shape[0], N_HYP, m_sim3["kf_uv"].shape[1]),
+                         "cpu")
+    m_apply, kf_a, cand_a, loop = kept["apply"]["args"]
+    m_apply = map_to_numpy(m_apply)
+    loop_np = [x.cpu() for x in (loop.ok, loop.n_matches)] \
+        + [x.cpu() for x in loop.sim3]
+    m_slice, lam, prune = kept["slice"]["args"]
+    m_slice = map_to_numpy(m_slice)
+
+    out = {}
+    for name, s in sides.items():
+        dev = s.device
+        t0 = time.perf_counter()
+        lp, cand = s._loop_sim3(map_from_numpy(m_sim3, device=dev), kf,
+                                cands.to(dev), noise.to(dev))
+        lp_dev = LoopSim3(ok=loop_np[0].to(dev), n_matches=loop_np[1].to(dev),
+                          sim3=Sim3Result(*(x.to(dev) for x in loop_np[2:])))
+        m_in = map_from_numpy(m_apply, device=dev)
+        ap = s._loop_apply(m_in, kf_a, cand_a.to(dev), lp_dev)
+        sl_in = map_from_numpy(m_slice, device=dev)
+        sl = s._global_slice(sl_in, lam, prune)
+        out[name] = dict(sim3=(lp, cand), apply=ap, slice=sl,
+                        seconds=time.perf_counter() - t0,
+                        inputs=(m_in, lp_dev, sl_in))
+    g, c = out["cuda"], out["cpu"]
+    (lg, cg), (lc, cc) = g["sim3"], c["sim3"]
+    sim3_err = max(_max_err(getattr(lg.sim3, f).cpu(), getattr(lc.sim3, f))
+                   for f in ("s", "R", "t"))
+    d_inl = abs(int(lg.sim3.n_inliers) - int(lc.sim3.n_inliers))
+    sim3_same = (bool(lg.ok) == bool(lc.ok) and int(cg) == int(cc)
+                 and int(lg.n_matches) == int(lc.n_matches))
+    mg, mc = map_to_numpy(g["apply"][0]), map_to_numpy(c["apply"][0])
+    apply_err = max(_max_err(mg[f], mc[f]) for f in ("kf_R", "kf_t",
+                                                      "lm_pos"))
+    med_err = max(_rel_err(g["apply"][i], c["apply"][i]) for i in (3, 4))
+    sg, sc = map_to_numpy(g["slice"][0]), map_to_numpy(c["slice"][0])
+    slice_err = max(_max_err(sg[f], sc[f]) for f in ("kf_R", "kf_t",
+                                                      "lm_pos"))
+
+    # Repeats on the card from the same inputs: bit for bit.
+    s = sides["cuda"]
+    m_in, lp_dev, sl_in = g["inputs"]
+    ap2 = s._loop_apply(m_in, kf_a, cand_a, lp_dev)
+    apply_bits = _maps_equal(ap2[0], g["apply"][0]) and all(
+        x.equal(y) for x, y in zip(ap2[1:], g["apply"][1:]))
+    sl2 = s._global_slice(sl_in, lam, prune)
+    slice_bits = _maps_equal(sl2[0], g["slice"][0]) and all(
+        x.equal(y) for x, y in zip(sl2[1:], g["slice"][1:]))
+    res = dict(
+        phase="loop_parity", kf=int(kf), cands=cands.tolist(),
+        tolerances=dict(sim3=1e-4, inliers=2, apply=1e-3,
+                        medians_rel=1e-3, global_slice=1e-3),
+        sim3=dict(ok=bool(lc.ok), cand=int(cc), n_matches=int(lc.n_matches),
+                  n_inliers_cpu=int(lc.sim3.n_inliers),
+                  n_inliers_diff=d_inl, s=float(lc.sim3.s), srt_err=sim3_err,
+                  verdict_candidate_matches_equal=sim3_same),
+        apply=dict(kf=int(kf_a), cand=int(cand_a), err=apply_err,
+                   median_before=float(c["apply"][3]),
+                   median_after=float(c["apply"][4]),
+                   medians_rel_err=med_err,
+                   moved=_max_err(mc["kf_t"], m_apply["kf_t"]),
+                   repeat_bit_equal=apply_bits),
+        global_slice=dict(lam=float(lam), prune=bool(prune), err=slice_err,
+                          repeat_bit_equal=slice_bits),
+        card_ms_per_call=card_ms, cpu_seconds=c["seconds"])
+    emit(res)
+    if not (sim3_same and d_inl <= 2 and sim3_err <= 1e-4):
+        fail(f"_loop_sim3 card vs CPU: verdict/candidate/matches equal "
+             f"{sim3_same}, inliers differ by {d_inl}, s/R/t err {sim3_err}")
+    if not (apply_err <= 1e-3 and med_err <= 1e-3):
+        fail(f"_loop_apply card vs CPU: err {apply_err}, medians rel err "
+             f"{med_err}")
+    if not slice_err <= 1e-3:
+        fail(f"_global_slice card vs CPU: err {slice_err}")
+    if not (apply_bits and slice_bits):
+        fail(f"repeats on the card not bit-equal: _loop_apply {apply_bits}, "
+             f"_global_slice {slice_bits}")
+    return res
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -594,7 +877,7 @@ def main() -> int:
     from send_slam_tpu_torch.models.frame import make_frame
     from send_slam_tpu_torch.models.map_state import map_to_numpy
     from send_slam_tpu_torch.models.system import (
-        TRACKING_OK, System, loop_state_to_numpy, slice_config,
+        TRACKING_OK, System, loop_state_to_numpy,
     )
     from send_slam_tpu_torch.ops import fast as fast_ops
     from send_slam_tpu_torch.ops import fast_cuda
@@ -620,8 +903,8 @@ def main() -> int:
     # --- 2 + 3. kernel vs plain on the card, and its times -----------------
     kc = kernel_check(torch, fast_cuda, fast_ops, level_shapes)
     emit(dict(phase="kernel_check", **kc))
-    cfg = slice_config(EngineConfig(camera=CameraConfig(
-        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0)))
+    cfg = EngineConfig(camera=CameraConfig(
+        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
     ts, Rs, tls = world.trajectory(n_frames=N_FRAMES)
@@ -650,8 +933,8 @@ def main() -> int:
     ate = ate_rmse(est_ts, pos, ts, gt) if tracked >= 3 else float("inf")
     result = dict(
         phase="main_path", device=name, nvidia_smi=smi,
-        config="slice_config(EngineConfig(camera=...)): default tracking, "
-               "loop closing off",
+        config="EngineConfig(camera=...): the JAX package's defaults, "
+               "loop closing on",
         frames=N_FRAMES, tracked=tracked, tracked_live=run["live"],
         backfilled=run["backfilled"], tracked_unique=len(set(est_ts)),
         init_commit_ts=system.init_commit_ts,
@@ -727,11 +1010,16 @@ def main() -> int:
     emit(dict(phase="relocalization", reloc_step_ms=reloc_ms["_reloc_step"],
               **reloc_phase(system, frames, ts, gt, est_ts, pos)))
 
+    # --- 9 + 10. the loop session, its programs card vs CPU ---------------
+    lp, kept = loop_path(torch, System, cfg, fast_cuda)
+    loop_parity(torch, System, cfg, kept)
+
     emit({"kernels": [{
         "name": "fast_score", "route": "cuda",
         "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
         "replaces": "send_slam_tpu/ops/pallas/fast_kernel.py:226",
-        "launches": launches, "max_abs_err": kc["max_abs_err"],
+        "launches": launches, "loop_path_launches": lp["fast_launches"],
+        "max_abs_err": kc["max_abs_err"],
         "max_abs_diff": kc["max_abs_err"],
         "ms": kt["ms"], "launch_interval_ms": kt["launch_interval_ms"],
         "plain_ms": kt["plain_ms"],

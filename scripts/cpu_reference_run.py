@@ -1,21 +1,30 @@
-"""The main path of chip_smoke.py on the CPU, in either package.
+"""chip_smoke.py's main path or its loop session on the CPU, in either
+package.
 
     JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax
     python scripts/cpu_reference_run.py --package torch
+    python scripts/cpu_reference_run.py --package torch --scene laps \
+        --frames 260
 
-Runs ``System.track_monocular`` at chip_smoke.py's main-path
-configuration (640x480, 1250 features, 8 levels, 256 keyframes, 16384
-landmarks, BA window 8, the default tracking options with loop closing
-off) over the 90 frames of the synthetic bench scene (seed 11), counts
-poses as bench.py does (live OK outputs, backfill triples, the final
-drain) and prints one JSON line: tracked, live, backfilled, unique
-timestamps, ATE, keyframes, the init commit time and every collapse-probe
-verdict (commit time, probe time, velocity ratio).
+Runs ``System.track_monocular`` at chip_smoke.py's configuration
+(640x480, 1250 features, 8 levels, 256 keyframes, 16384 landmarks, BA
+window 8, the JAX package's default options, loop closing on) over the
+synthetic bench scene (seed 11): ``--scene bench`` is the main path's
+90-frame arc, ``--scene laps`` the long bench's revisit trajectory
+(``trajectory_laps`` over 1000 frames and 6 laps), of which the first
+``--frames`` frames run. Poses are counted as bench.py counts them
+(live OK outputs, backfill triples, the final drain). Prints one JSON
+line: tracked, live, backfilled, unique timestamps, the streamed ATE,
+keyframes, the init commit time and every failed collapse probe (commit
+time, probe time, velocity ratio); with loop closing, every loop attempt
+with the frame that recorded it, the frame of the first applied closure
+and the keyframe ATE just before it and at the end.
 
 The port draws its RANSAC samples from a CPU generator on every device,
 so ``--package torch`` here takes the same draws as the port's run on
 the card; ``--package jax`` is the reference at the same configuration.
-A run takes one to two minutes.
+The main path takes one to two minutes; the loop session at 260 frames
+several.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "torch"), required=True)
+    ap.add_argument("--scene", choices=("bench", "laps"), default="bench")
     ap.add_argument("--frames", type=int, default=90)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -43,26 +53,25 @@ def main() -> int:
         from send_slam_tpu import config as C
         from send_slam_tpu.models import system as S
         make = (lambda cfg: S.System(cfg))
-        loop_off = dict(loop_min_gap_kf=10 ** 6)
     else:
         import torch
         torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
         from send_slam_tpu_torch import config as C
         from send_slam_tpu_torch.models import system as S
         make = (lambda cfg: S.System(cfg, device="cpu"))
-        loop_off = dict(loop_min_gap_kf=256)
     from send_slam_tpu_torch.io.evaluate import ate_rmse
     from send_slam_tpu_torch.utils.synth import SyntheticWorld
 
-    cfg = C.EngineConfig(
-        camera=C.CameraConfig(width=640, height=480, fx=520.0, fy=520.0,
-                              cx=320.0, cy=240.0),
-        tracking=C.TrackingConfig(**loop_off))
+    cfg = C.EngineConfig(camera=C.CameraConfig(
+        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
-    ts, Rs, tls = world.trajectory(n_frames=args.frames)
-    frames = [np.round(world.render(Rs[k], tls[k])).astype(np.uint8)
-              for k in range(args.frames)]
+    if args.scene == "laps":
+        ts, Rs, tls = world.trajectory_laps(n_frames=1000, laps=6)
+        ts, Rs, tls = ts[:args.frames], Rs[:args.frames], tls[:args.frames]
+    else:
+        ts, Rs, tls = world.trajectory(n_frames=args.frames)
+    gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
     s = make(cfg)
     probes = []
     retry = S.System._collapse_retry
@@ -75,27 +84,55 @@ def main() -> int:
         return retry(self, ts_rel)
 
     S.System._collapse_retry = spy
+
+    def kf_ate():
+        kts, kpos, _ = s.keyframe_poses()
+        return (ate_rmse(np.asarray(kts), np.asarray(kpos), ts, gt)
+                if len(kts) >= 3 else float("inf"))
+
+    frame, applies = [0], []
+    apply = s._loop_apply
+
+    def spy_apply(*a):
+        applies.append(dict(frame=frame[0], kf_ate_before=kf_ate()))
+        return apply(*a)
+
+    s._loop_apply = spy_apply
     live = backfilled = 0
-    est = []
+    est, attempts = [], []
     t0 = time.perf_counter()
-    outs = [s.track_monocular(frames[k], float(ts[k]))
-            for k in range(args.frames)]
-    for out in outs + list(s._flush_pipeline(final=True)):
+
+    def take(out):
+        nonlocal live, backfilled
         if out.tracking_state == 2:
             live += 1
             est.append((out.timestamp, out.position))
         backfilled += len(out.backfill)
         est.extend((b[0], b[1]) for b in out.backfill)
+
+    for k in range(args.frames):
+        frame[0] = k
+        take(s.track_monocular(
+            np.round(world.render(Rs[k], tls[k])).astype(np.uint8),
+            float(ts[k])))
+        while len(attempts) < len(s.loop_attempts):
+            att = s.loop_attempts[len(attempts)]
+            attempts.append(dict(frame=k, attempt=list(att)))
+    for out in s._flush_pipeline(final=True):
+        take(out)
     est.sort(key=lambda e: e[0])
-    gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
     ate = ate_rmse([e[0] for e in est], np.asarray([e[1] for e in est]),
                    ts, gt) if len(est) >= 3 else float("inf")
+    applied = [a for a in attempts if a["attempt"][3] is True]
     print(json.dumps(dict(
-        package=args.package, frames=args.frames, tracked=len(est),
-        tracked_live=live, backfilled=backfilled,
+        package=args.package, scene=args.scene, frames=args.frames,
+        tracked=len(est), tracked_live=live, backfilled=backfilled,
         tracked_unique=len({e[0] for e in est}), ate_m=ate,
         keyframes=int(s._n_kf_host), init_commit_ts=s.init_commit_ts,
-        failed_collapse_probes=probes,
+        failed_collapse_probes=probes, loop_attempts=attempts,
+        loops_closed=s.loops_closed, applies=applies,
+        first_applied_verdict_frame=applied[0]["frame"] if applied else None,
+        kf_ate_end_m=kf_ate(),
         seconds=time.perf_counter() - t0)), flush=True)
     return 0
 

@@ -15,8 +15,10 @@ object:
   over 20 calls, each ending in a device sync (the host's launch time
   included, as the main path pays it), and whether two calls on the
   same input gave the same bits;
-- ``main_path``: ``System(slice_config(...))`` at the flagship
-  configuration over ``--frames`` frames of the synthetic bench scene
+- ``main_path``: ``System`` at the flagship configuration (the JAX
+  package's defaults; a tree from before loop closing was ported turns
+  it off with its ``slice_config``, and no probe can fire in 90 frames
+  either way) over ``--frames`` frames of the synthetic bench scene
   (seed 11): median and mean ms per tracked (pose-emitting) frame, each
   frame ending in a device sync, and the frames tracked.
 
@@ -112,16 +114,17 @@ def time_ba(torch, calls=20):
 
 def time_main_path(torch, n_frames):
     from send_slam_tpu_torch.config import CameraConfig, EngineConfig
-    from send_slam_tpu_torch.models.system import System, slice_config
+    from send_slam_tpu_torch.models import system as sysmod
     from send_slam_tpu_torch.utils.synth import SyntheticWorld
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
     ts, Rs, tls = world.trajectory(n_frames=n_frames)
     frames = [np.round(world.render(Rs[k], tls[k])).astype(np.uint8)
               for k in range(n_frames)]
-    cfg = slice_config(EngineConfig(camera=CameraConfig(
-        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0)))
-    s = System(cfg, device="cuda")
+    cfg = EngineConfig(camera=CameraConfig(
+        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
+    cfg = getattr(sysmod, "slice_config", lambda c: c)(cfg)
+    s = sysmod.System(cfg, device="cuda")
     t_ok, stamps = [], set()
     for k in range(n_frames):
         t0 = time.perf_counter()

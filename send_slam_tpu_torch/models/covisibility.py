@@ -1,13 +1,12 @@
-"""Covisibility over the keyframe table: the local-BA window and
-redundant-keyframe culling.
+"""Covisibility over the keyframe table: the local-BA window,
+redundant-keyframe culling and the essential graph's edges.
 
 Counterpart of the ported part of ``send_slam_tpu/models/
 covisibility.py``: the covisibility graph is recomputed on demand as one
 (MK, ML) @ (ML, MK) product of the keyframe/landmark indicator; it gives
-the local-BA window, the wide polish window and redundant-keyframe
-culling. The pose-graph edges (``covis_edges``, ``chain_edges``) and
-compaction belong to loop closing and capacity management, which later
-slices port.
+the local-BA window, the wide polish window, redundant-keyframe culling
+and the pose graph's covisibility and chain edges. Compaction belongs to
+capacity management, which a later slice ports.
 """
 
 from __future__ import annotations
@@ -15,6 +14,9 @@ from __future__ import annotations
 import torch
 
 from send_slam_tpu_torch.models.map_state import MapState, set_rows
+from send_slam_tpu_torch.models.pose_graph import (
+    PoseGraphEdges, relative_edges,
+)
 from send_slam_tpu_torch.ops.orb import stable_topk
 
 
@@ -79,6 +81,48 @@ def wide_window_ids(m: MapState, W: int):
     out = torch.sort(torch.where(all_ids < MK, all_ids,
                                  torch.full_like(all_ids, MK))).values
     return out.to(torch.int32), out < MK
+
+
+def covis_edges(m: MapState, top_k: int = 5, min_shared: float = 30.0,
+                max_gap: int = 0) -> PoseGraphEdges:
+    """Essential-graph covisibility edges: for every valid keyframe, its
+    ``top_k`` strongest covisible partners (ties to the lower slot, as
+    ``lax.top_k``) with at least ``min_shared`` shared landmarks,
+    measured from the current poses. E = MK * top_k edges; i->j and
+    j->i duplicates weight one constraint twice. Adjacent pairs are the
+    chain's; ``max_gap > 0`` also drops pairs further apart."""
+    MK = m.max_keyframes
+    ids = torch.arange(MK, device=m.device)
+    live = m.kf_valid & (ids < m.n_kf)
+    eligible = live[:, None] & live[None, :]
+    C = covisibility_matrix(m)
+    top_v, top_j = stable_topk(torch.where(eligible, C,
+                                           torch.full_like(C, -1.0)), top_k)
+    i = ids[:, None].expand(MK, top_k).reshape(-1)
+    j = top_j.reshape(-1)
+    valid = (top_v.reshape(-1) >= min_shared) & m.kf_valid[i] \
+        & ((i - j).abs() > 1)
+    if max_gap > 0:
+        valid = valid & ((i - j).abs() <= max_gap)
+    return relative_edges(m.kf_R, m.kf_t, i, j, valid,
+                          torch.ones(MK * top_k, dtype=torch.float32,
+                                     device=m.device))
+
+
+def chain_edges(m: MapState) -> PoseGraphEdges:
+    """Spanning-tree edges between consecutive valid keyframes. A
+    keyframe with ``kf_chain_break`` set starts a new segment: the edge
+    into it is a relocalization jump, not motion, and is dropped."""
+    MK = m.max_keyframes
+    ids = torch.arange(MK, dtype=torch.int32, device=m.device)
+    valid = m.kf_valid & (ids < m.n_kf)
+    incl = torch.cummax(torch.where(valid, ids, torch.full_like(ids, -1)),
+                        0).values
+    prev = torch.cat([incl.new_full((1,), -1), incl[:-1]])
+    e_ok = valid & (prev >= 0) & ~m.kf_chain_break
+    return relative_edges(m.kf_R, m.kf_t, torch.clamp(prev, 0, MK - 1), ids,
+                          e_ok, torch.ones(MK, dtype=torch.float32,
+                                           device=m.device))
 
 
 def keyframe_redundancy(m: MapState, min_other_obs: int = 3) -> torch.Tensor:

@@ -8,12 +8,15 @@ blocks are eliminated in closed form over the whole landmark table, the
 reduced (6W)^2 camera system is solved dense, and each Levenberg step is
 accepted only if the robust cost does not increase; an observation prune
 follows. Assembly is an order-fixed segment sum and a row gather
-(``ops/segsum.ObsMap``). ``wide_bundle_adjustment`` and ``ba_slice`` are
-the JAX package's thin wrappers over it.
+(``ops/segsum.ObsMap``). ``wide_bundle_adjustment``,
+``global_bundle_adjustment`` and ``ba_slice`` are the JAX package's thin
+wrappers over it.
 
-The chunked assembly for windows wider than ``kf_chunk`` keyframes (the
-global polish window after a loop closure) is not ported and raises; the
-wide window is at most 64 keyframes, which ``kf_chunk`` admits.
+The JAX package assembles windows wider than ``kf_chunk`` keyframes (the
+global window, every keyframe slot) by a ``lax.scan`` over keyframe
+chunks (``_ba_chunked``), only to bound the TPU's (ML, kf_chunk * N)
+observation one-hot. The port builds no one-hot, so every window is
+assembled in one block and solves the same joint problem.
 """
 
 from __future__ import annotations
@@ -182,8 +185,7 @@ def local_bundle_adjustment(m: MapState, K, cfg: MapConfig, iters: int = 5,
                             huber_delta: float = 2.447, damping=1e-3,
                             scale_factor: float = 1.2, n_fixed: int = 2,
                             window_ids=None, prune=True,
-                            chi2_prune_mult: float = 4.0,
-                            kf_chunk: int = 64) -> MapState:
+                            chi2_prune_mult: float = 4.0) -> MapState:
     """BA over a keyframe window (default: the newest cfg.ba_window);
     returns the map with refined window poses and landmark positions.
     ``damping`` may be a tensor; with iters > 1 it halves per iteration,
@@ -199,9 +201,6 @@ def local_bundle_adjustment(m: MapState, K, cfg: MapConfig, iters: int = 5,
     else:
         W = window_ids.shape[0]
         win_ids = window_ids.to(device=dev, dtype=torch.int32)
-    if W > kf_chunk:
-        raise NotImplementedError(
-            "chunked BA windows (wider than kf_chunk) are not ported yet")
     win_ok = win_ids < torch.clamp(m.n_kf, max=MK)
     gid = torch.clamp(win_ids, 0, MK - 1).long()
 
@@ -276,6 +275,13 @@ def wide_bundle_adjustment(m: MapState, K, cfg: MapConfig,
     wide = dataclasses.replace(
         cfg, ba_window=min(cfg.max_keyframes, max_window))
     return local_bundle_adjustment(m, K, wide, iters=iters)
+
+
+def global_bundle_adjustment(m: MapState, K, cfg: MapConfig,
+                             iters: int = 8) -> MapState:
+    """Whole-map BA over every keyframe slot (W = max_keyframes)."""
+    whole = dataclasses.replace(cfg, ba_window=cfg.max_keyframes)
+    return local_bundle_adjustment(m, K, whole, iters=iters)
 
 
 def ba_slice(m: MapState, K, cfg: MapConfig, window_ids, lam,

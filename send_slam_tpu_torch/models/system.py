@@ -1,34 +1,38 @@
 """The System facade: host orchestration of the monocular tracking path.
 
 Counterpart of ``send_slam_tpu/models/system.py`` at the JAX package's
-default tracking configuration with loop closing off:
-``track_monocular`` with the multi-reference two-view init
-(``_try_initialize`` / ``_init_multi`` / ``_commit_init``), the map
-bootstrap and the init trajectory backfill, the young-map scale-collapse
-probe with its held poses and its retry over the recent images, the
-per-frame step (motion-model prediction, tracking, the keyframe
+default configuration: ``track_monocular`` with the multi-reference
+two-view init (``_try_initialize`` / ``_init_multi`` / ``_commit_init``),
+the map bootstrap and the init trajectory backfill, the young-map
+scale-collapse probe with its held poses and its retry over the recent
+images, the per-frame step (motion-model prediction, tracking, the keyframe
 decision, keyframe insertion with triangulation, the insert BA burst and
 the amortized one-iteration BA slices), the one-frame-late summary
 handling with the same lag, the young-map reset at ``n_kf <= 5``, the
 LOST transition and relocalization (retrieval candidates re-tracked
-beside a PnP RANSAC), the per-keyframe map maintenance and the queued
-young and wide polish slices with their large-correction chain rebase.
+beside a PnP RANSAC), the per-keyframe map maintenance, the queued
+young and wide polish slices with their large-correction chain rebase,
+and loop closing: a retrieval probe at each keyframe, the Sim(3)
+verification of its candidates, the pose-graph correction committed at
+once and judged by a reprojection sanity gate a frame later (rolled back
+on failure), then the queued global polish slices over every keyframe
+slot.
 
 What the JAX package's jitted programs decide with ``lax.cond`` is a
-Python branch here. Randomness (RANSAC minimal sets) comes from a CPU
-``torch.Generator`` reset with the session, as the JAX System resets
-its PRNG key; on the CPU, it draws the same numbers for a run on the
-card as for the same run on the CPU. The port compiles nothing ahead of
-a run, so the JAX System's warm-up readiness gate (``_tail_ready``) is
-always open here.
+Python branch here. Randomness (RANSAC minimal sets and the loop
+verification's Gumbel draws) comes from a CPU ``torch.Generator`` reset
+with the session, as the JAX System resets its PRNG key; on the CPU, it
+draws the same numbers for a run on the card as for the same run on the
+CPU. The port compiles nothing ahead of a run, so the JAX System's
+warm-up readiness gate (``_tail_ready``) is always open here. The JAX
+System reads the loop phases' scalars through background fetches with
+blocking reads; the port reads them synchronously at the same points,
+one phase per drained frame, so the cadence is the same.
 
-Not ported, and refused at construction: loop closing
-(``loop_min_gap_kf`` must be at least ``max_keyframes``, so no probe can
-fire), BA windows over 64 keyframes and pyramid scales other than 1.2.
-Not ported either: the atlas weld, so a relocalization timeout that
-would keep a frozen map (``max_atlas_maps > 0``) raises
-NotImplementedError; keyframe compaction, so reaching the keyframe
-capacity raises; and map I/O.
+Refused at construction: pyramid scales other than 1.2. Not ported: the
+atlas weld, so a relocalization timeout that would keep a frozen map
+(``max_atlas_maps > 0``) raises NotImplementedError; keyframe
+compaction, so reaching the keyframe capacity raises; and map I/O.
 """
 
 from __future__ import annotations
@@ -55,6 +59,10 @@ from send_slam_tpu_torch.models.local_ba import local_bundle_adjustment
 from send_slam_tpu_torch.models.local_mapping import (
     insert_keyframe_with_triangulation,
 )
+from send_slam_tpu_torch.models.loop_closing import (
+    N_HYP, apply_loop_correction, compute_loop_sim3_multi, loop_candidates,
+    map_reprojection_median,
+)
 from send_slam_tpu_torch.models.map_state import (
     MapState, add_landmarks, empty_map, insert_keyframe,
     prune_zero_obs_landmarks, update_landmark_stats,
@@ -63,6 +71,7 @@ from send_slam_tpu_torch.models.relocalize import relocalize
 from send_slam_tpu_torch.models.retrieval import (
     frame_signature, idf_weights, retrieval_scores,
 )
+from send_slam_tpu_torch.models.sim3_solver import gumbel_noise
 from send_slam_tpu_torch.models.tracking import track_frame
 from send_slam_tpu_torch.ops.hamming import Matches
 from send_slam_tpu_torch.ops.orb import stable_topk
@@ -137,28 +146,11 @@ class TrackOutput(NamedTuple):
     backfill: tuple = ()
 
 
-def _check_slice_config(cfg: EngineConfig) -> None:
-    tr, mp = cfg.tracking, cfg.map
-    refused = []
-    if tr.loop_min_gap_kf < mp.max_keyframes:
-        refused.append("loop_min_gap_kf < max_keyframes (loop closing)")
-    if mp.ba_window > 64:
-        refused.append("ba_window > 64 (chunked BA)")
+def _check_config(cfg: EngineConfig) -> None:
     if abs(cfg.orb.scale_factor - 1.2) > 1e-9:
-        refused.append("scale_factor != 1.2")
-    if refused:
         raise NotImplementedError(
-            "send_slam_tpu_torch does not port these features yet; turn "
-            "them off: " + "; ".join(refused))
-
-
-def slice_config(cfg: EngineConfig) -> EngineConfig:
-    """``cfg`` with loop closing, which the port leaves out, turned
-    off."""
-    tr = dataclasses.replace(
-        cfg.tracking, loop_min_gap_kf=max(cfg.tracking.loop_min_gap_kf,
-                                          cfg.map.max_keyframes))
-    return cfg.replace(tracking=tr)
+            "send_slam_tpu_torch does not port pyramid scales other than "
+            "1.2 yet (scale_factor != 1.2)")
 
 
 def _stack_frames(frames: List[Frame]) -> Frame:
@@ -179,7 +171,7 @@ class System:
     """Monocular SLAM engine on the card (or the CPU with device="cpu")."""
 
     def __init__(self, config: EngineConfig, device=None):
-        _check_slice_config(config)
+        _check_config(config)
         self.cfg = config
         self.device = resolve_device(device)
         cam = config.camera
@@ -194,6 +186,7 @@ class System:
         self._n_backfill = max(max(tr.init_ref_gaps) - 1, 1)
         self._wide_cfg = dataclasses.replace(config.map,
                                              ba_window=min(MK, 64))
+        self._glob_cfg = dataclasses.replace(config.map, ba_window=MK)
         # Frames through make_frame (each runs one FAST launch on the
         # card, over every pyramid level).
         self.frames_extracted = 0
@@ -202,10 +195,14 @@ class System:
         self._collapse_resets = 0
         # Session-wide observability (survives reset()): each
         # collapse-probe verdict, (commit ts, probe ts, velocity ratio,
-        # passed) in session-relative seconds; polish slices run.
+        # passed) in session-relative seconds; polish slices run;
+        # applied loop closures.
         self.collapse_probes: List[tuple] = []
-        self.polish_slices_run: Dict[str, int] = {"wide": 0, "young": 0}
+        self.polish_slices_run: Dict[str, int] = {"wide": 0, "young": 0,
+                                                  "global": 0}
         self.last_reloc: Optional[dict] = None
+        self.loops_closed = 0
+        self.session_loops_applied = 0
         self.reset()
 
     # ------------------------------------------------------------------
@@ -243,6 +240,15 @@ class System:
         # relocalization (recorded on the keyframe, kf_chain_break).
         self._reloc_boundary_next_kf = False
         self._reloc_failures = 0
+        # Loop closing: the probe or verification in flight, the applied
+        # closure awaiting its sanity verdict (dropped with the map), the
+        # (candidate slot, run length) consistency counter, every
+        # attempt's record and the cooldown anchor.
+        self._pending_loop: Optional[dict] = None
+        self._pending_loop_sanity: Optional[dict] = None
+        self._loop_consistency: Optional[Tuple[int, int]] = None
+        self.loop_attempts: List[tuple] = []
+        self._last_loop_nkf = -(10 ** 9)
         # Polish queue: (kind, lam, prune) slices, one per frame.
         self._polish_queue: List[tuple] = []
         self._young_polish_done = False
@@ -576,6 +582,46 @@ class System:
         return self._polish_slice(m, lam, prune, self._wide_cfg,
                                   n_fixed=1, renorm_baseline=True)
 
+    def _global_slice(self, m: MapState, lam, prune):
+        """Global polish slice over every keyframe slot (after a loop
+        closure)."""
+        return self._polish_slice(m, lam, prune, self._glob_cfg)
+
+    def _loop_candidate(self, m: MapState, kf_id):
+        """The top-3 retrieval candidates of keyframe ``kf_id`` at least
+        ``loop_min_gap_kf`` slots away. Returns (cands, scores)."""
+        return loop_candidates(m, kf_id, self.cfg.tracking.loop_min_gap_kf,
+                               k=3)
+
+    def _loop_noise(self, m: MapState) -> torch.Tensor:
+        """One draw of Gumbel noise for ``_loop_sim3``: a (n_hyp, N)
+        block per candidate, from the System's CPU generator."""
+        return gumbel_noise(self._gen, (3, N_HYP, m.n_keypoints),
+                            self.device)
+
+    def _loop_sim3(self, m: MapState, kf_id, cands, noise):
+        """Sim(3)-verify the candidates; returns (LoopSim3 of the
+        winner, its candidate id)."""
+        tr = self.cfg.tracking
+        return compute_loop_sim3_multi(m, kf_id, cands, noise, tr,
+                                       min_matches=tr.loop_min_matches)
+
+    def _loop_apply(self, m: MapState, kf_id, cand_id, loop):
+        """The pose-graph correction of a verified loop, the newest
+        keyframe's delta (for the chain rebase) and the map's median
+        reprojection error before and after it (for the sanity gate).
+        Returns (map, dR, dt, med_before, med_after)."""
+        cam = self.cfg.camera
+        med_before = map_reprojection_median(m, cam.fx, cam.fy, cam.cx,
+                                             cam.cy)
+        m2 = apply_loop_correction(
+            m, kf_id, cand_id, loop,
+            covis_max_gap=self.cfg.tracking.loop_covis_max_gap)
+        med_after = map_reprojection_median(m2, cam.fx, cam.fy, cam.cx,
+                                            cam.cy)
+        dR, dt = self._newest_kf_delta(m, m2)
+        return m2, dR, dt, med_before, med_after
+
     @staticmethod
     def _rebase_st(st: LoopState, dR, dt) -> LoopState:
         return st.replace(R=dR @ st.R, t=dR @ st.t + dt,
@@ -779,11 +825,15 @@ class System:
         does."""
         if self._polish_queue:
             kind, lam, prune = self._polish_queue.pop(0)
-            step = {"wide": self._wide_slice, "young": self._young_slice}[kind]
+            step = {"wide": self._wide_slice, "young": self._young_slice,
+                    "global": self._global_slice}[kind]
             self.map, dR, dt, big = step(self.map, lam, prune)
             self.polish_slices_run[kind] += 1
-            # Rebase the speculative chain only on a large correction.
-            self._st = self._rebase_st_cond(self._st, dR, dt, big)
+            # Rebase the speculative chain only on a large wide or young
+            # correction: global slices follow a loop apply that rebased
+            # it already, and rebasing again double-corrects.
+            if kind != "global":
+                self._st = self._rebase_st_cond(self._st, dR, dt, big)
 
         st_prev = self._st
         m2, st2, summary = self._frame_step(
@@ -878,6 +928,7 @@ class System:
                 self._backfill_pending.extend(self._held_outputs)
                 self._held_outputs = []
 
+        self._maybe_close_loop()
         if s[S_KF] > 0.5:
             self._on_keyframe_inserted(int(s[S_SLOT]), n_kf, ts, pos, quat)
         if n_kf >= self.cfg.map.max_keyframes - 2:
@@ -911,6 +962,8 @@ class System:
                 self._pending.clear()
                 break
             outs.append(self._process_lagged())
+        # An applied closure must not outlive the pipeline unjudged.
+        self._resolve_loop_sanity()
         if final and self._held_outputs:
             bf = tuple(self._held_outputs)
             self._trajectory.extend(self._held_outputs)
@@ -946,7 +999,9 @@ class System:
 
     def _freeze_to_atlas(self) -> None:
         """Drop the active map and start a fresh one, keeping the
-        session's trajectories, epoch, RANSAC stream and init counters.
+        session's trajectories, epoch, RANSAC stream, init counters and
+        loop attempts (an applied closure awaiting its verdict is
+        dropped unjudged, as in the reference).
         Keeping the frozen map needs the atlas weld, which is not
         ported: with ``max_atlas_maps > 0`` this raises."""
         if self.cfg.tracking.max_atlas_maps > 0:
@@ -958,11 +1013,105 @@ class System:
         gen_state = self._gen.get_state()
         t0 = self._t0
         n_init, ts_init = self.init_attempts, self.init_commit_ts
+        attempts = self.loop_attempts
         self.reset()
         self._trajectory, self._kf_trajectory = traj, kf_traj
         self._gen.set_state(gen_state)
+        self.loop_attempts = attempts
         self.init_attempts, self.init_commit_ts = n_init, ts_init
         self._t0 = t0
+
+    def _maybe_close_loop(self) -> None:
+        """One loop phase per drained frame. First the sanity verdict of
+        a closure applied on the previous one. Phase 1 reads the probe's
+        top score and candidate: outside (loop_score_min, loop_score_max)
+        or before loop_consistency_kf consecutive probes agree on a
+        region, the probe ends; else the candidates retrieved at
+        insertion are Sim(3)-verified on the current map, with one draw
+        from the generator. Phase 2 reads the verdict: a verified loop's
+        correction is applied at once and the chain rebased by the
+        newest keyframe's delta; its sanity is judged on the next
+        drained frame."""
+        self._resolve_loop_sanity()
+        p = self._pending_loop
+        if p is None:
+            return
+        tr = self.cfg.tracking
+        kf_slot = p["kf_slot"]
+
+        if "loop" not in p:                     # phase 1: the score
+            score = float(p["scores"][0])
+            cand_val = int(p["cands"][0])
+            # Saturated scores mean near-duplicate keyframes (a map
+            # folded onto itself), not a revisit.
+            if score <= tr.loop_score_min or score >= tr.loop_score_max:
+                self._pending_loop = None
+                self._loop_consistency = None
+                self.loop_attempts.append((kf_slot, cand_val, score, None))
+                return
+            prev = self._loop_consistency
+            if prev is not None and abs(cand_val - prev[0]) \
+                    <= tr.loop_consistency_radius:
+                run = prev[1] + 1
+            else:
+                run = 1
+            self._loop_consistency = (cand_val, run)
+            if run < tr.loop_consistency_kf:
+                self._pending_loop = None
+                self.loop_attempts.append((kf_slot, cand_val, score, None))
+                return
+            loop, cand_sel = self._loop_sim3(self.map, kf_slot, p["cands"],
+                                             self._loop_noise(self.map))
+            self._pending_loop = dict(kf_slot=kf_slot, cand_top=cand_val,
+                                      score=score, loop=loop,
+                                      cand_sel=cand_sel)
+            return
+
+        self._pending_loop = None               # phase 2: the verdict
+        if not bool(p["loop"].ok):
+            self.loop_attempts.append((kf_slot, p["cand_top"], p["score"],
+                                       False, None))
+            return
+        m_pre = self.map
+        m2, dR, dt, med_b, med_a = self._loop_apply(
+            self.map, kf_slot, p["cand_sel"], p["loop"])
+        self.map = m2
+        self._st = self._rebase_st(self._st, dR, dt)
+        self._pending_loop_sanity = dict(
+            kf_slot=kf_slot, cand_sel=p["cand_sel"], cand_top=p["cand_top"],
+            score=p["score"], m_pre=m_pre, dR=dR, dt=dt, med_b=med_b,
+            med_a=med_a)
+
+    def _resolve_loop_sanity(self) -> None:
+        """Judge an applied closure: its median reprojection error must
+        stay within max(loop_sanity_px, loop_sanity_factor x the median
+        before it). A sane closure queues the global polish slices and
+        arms the cooldown; otherwise the pre-apply map is restored and
+        the chain inverse-rebased (nothing else is restored, as in the
+        reference)."""
+        p = self._pending_loop_sanity
+        if p is None:
+            return
+        tr = self.cfg.tracking
+        self._pending_loop_sanity = None
+        med_b, med_a = float(p["med_b"]), float(p["med_a"])
+        sane = (not np.isfinite(med_a)) or med_a <= max(
+            tr.loop_sanity_px, tr.loop_sanity_factor * max(med_b, 1e-6))
+        if sane:
+            self._enqueue_polish("global", tr.global_ba_slices)
+            self.loops_closed += 1
+            self.session_loops_applied += 1
+            self._last_loop_nkf = self._n_kf_host
+            verified, applied = True, int(p["cand_sel"])
+        else:
+            self.map = p["m_pre"]
+            dR_inv = p["dR"].T
+            self._st = self._rebase_st(self._st, dR_inv, -(dR_inv @ p["dt"]))
+            self._pending_loop = None
+            self._loop_consistency = None
+            verified, applied = "rejected", None
+        self.loop_attempts.append((p["kf_slot"], p["cand_top"], p["score"],
+                                   verified, applied))
 
     def _enqueue_polish(self, kind: str, n_slices: int) -> None:
         """Queue ``n_slices`` one-iteration slices with a halving
@@ -975,9 +1124,10 @@ class System:
     def _on_keyframe_inserted(self, kf_slot: int, n_kf: int, ts: float,
                               pos, quat) -> None:
         """Keyframe-rate host reactions to an insert, learned from the
-        lagged summary: maintenance, and the young and wide polish
-        scheduling. (The JAX System also gates these on its warm-up
-        readiness, which is always set here.)"""
+        lagged summary: maintenance, the young and wide polish
+        scheduling and the loop-closing probe. (The JAX System also
+        gates these on its warm-up readiness, which is always set
+        here.)"""
         tr = self.cfg.tracking
         self._n_kf_host += 1
         self._slots_used = n_kf
@@ -998,6 +1148,16 @@ class System:
                 and self._n_kf_host % tr.wide_ba_every_kf == 0 \
                 and not self._polish_queue:
             self._enqueue_polish("wide", tr.wide_ba_slices)
+        # Loop probe: retrieval now, its score read on the next drained
+        # frame; none while a tracked frame is weak or within
+        # loop_cooldown_kf keyframes of an applied closure.
+        if (kf_slot >= tr.loop_min_gap_kf and self._pending_loop is None
+                and self._last_inliers >= tr.loop_min_track_inliers
+                and self._n_kf_host - self._last_loop_nkf
+                >= tr.loop_cooldown_kf):
+            cands, scores = self._loop_candidate(self.map, kf_slot)
+            self._pending_loop = dict(kf_slot=kf_slot, cands=cands,
+                                      scores=scores)
 
     # ------------------------------------------------------------------
     # Outputs

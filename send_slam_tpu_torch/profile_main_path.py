@@ -79,8 +79,8 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA card")
-    cfg = sysmod.slice_config(EngineConfig(camera=CameraConfig(
-        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0)))
+    cfg = EngineConfig(camera=CameraConfig(
+        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
     ts, frames = _scene(args.frames)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

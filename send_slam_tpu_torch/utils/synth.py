@@ -3,7 +3,8 @@
 A copy of ``SyntheticWorld`` from the JAX package's
 ``send_slam_tpu/utils/synth.py`` (the port must not import that
 package): a random 3-D point cloud rendered as shaded, anti-aliased
-squares, with exact ground-truth camera trajectories.
+squares, with exact ground-truth camera trajectories: the bench arc and
+its multi-lap version, whose return passes revisit mapped territory.
 """
 
 from __future__ import annotations
@@ -85,6 +86,27 @@ class SyntheticWorld:
         for k in range(n_frames):
             a = k / max(n_frames - 1, 1)
             # Camera center moves along +x, slight sinusoid in y/z.
+            c = np.array([1.6 * a, 0.15 * np.sin(2 * np.pi * a),
+                          0.3 * a])
+            yaw = -0.12 * a
+            Rwc = Rotation.from_euler("y", yaw).as_matrix()
+            R = Rwc.T
+            t = -R @ c
+            ts.append(k / fps)
+            Rs.append(R)
+            tls.append(t)
+        return np.asarray(ts), Rs, tls
+
+    def trajectory_laps(self, n_frames=1000, fps=30.0, laps=4.0):
+        """Multi-lap version of the bench arc: the arc parameter sweeps
+        0 -> 1 -> 0 on a cosine profile (no velocity jump at the
+        turnarounds) ``laps`` times, so every return pass revisits
+        mapped territory."""
+        from scipy.spatial.transform import Rotation
+        ts, Rs, tls = [], [], []
+        for k in range(n_frames):
+            ph = laps * k / max(n_frames - 1, 1)
+            a = 0.5 - 0.5 * np.cos(2 * np.pi * ph)
             c = np.array([1.6 * a, 0.15 * np.sin(2 * np.pi * a),
                           0.3 * a])
             yaw = -0.12 * a

@@ -59,31 +59,27 @@ def test_port_imports_no_jax():
 def test_system_without_card_raises():
     import torch
     from send_slam_tpu_torch.config import EngineConfig
-    from send_slam_tpu_torch.models.system import System, slice_config
+    from send_slam_tpu_torch.models.system import System
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
-        System(slice_config(EngineConfig()))
+        System(EngineConfig())
 
 
 def test_system_refuses_unported_features():
-    """Only loop closing, BA windows over 64 keyframes and other
-    pyramid scales are refused; the rest of the default tracking
-    configuration constructs."""
-    import dataclasses
+    """The JAX package's default configuration constructs, loop closing
+    on, and so do BA windows up to the keyframe capacity; only other
+    pyramid scales are refused at construction, and ``slice_config``
+    (which turned loop closing off) is gone."""
     from send_slam_tpu_torch.config import EngineConfig, MapConfig, OrbConfig
-    from send_slam_tpu_torch.models.system import System, slice_config
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        System(EngineConfig(), device="cpu")
-    cfg = slice_config(EngineConfig())
-    ref = EngineConfig().tracking
-    assert cfg.tracking == dataclasses.replace(
-        ref, loop_min_gap_kf=cfg.map.max_keyframes)
-    for field in ("init_collapse_frac", "init_backfill", "young_ba_at_kf",
-                  "wide_ba_every_kf", "max_atlas_maps"):
-        assert getattr(cfg.tracking, field) == getattr(ref, field)
-    System(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="chunked BA"):
-        System(cfg.replace(map=MapConfig(ba_window=65)), device="cpu")
+    from send_slam_tpu_torch.models import system as tsys
+    cfg = EngineConfig()
+    s = tsys.System(cfg, device="cpu")
+    assert s.cfg.tracking.loop_min_gap_kf < cfg.map.max_keyframes
+    assert s.cfg is cfg
+    assert not hasattr(tsys, "slice_config")
+    tsys.System(cfg.replace(map=MapConfig(max_keyframes=96, ba_window=96)),
+                device="cpu")
     with pytest.raises(NotImplementedError, match="scale_factor"):
-        System(cfg.replace(orb=OrbConfig(scale_factor=1.3)), device="cpu")
+        tsys.System(cfg.replace(orb=OrbConfig(scale_factor=1.3)),
+                    device="cpu")
