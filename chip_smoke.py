@@ -43,7 +43,11 @@ Phases, each printing one JSON line:
    until it is LOST, then frames of mapped territory; it must be
    TRACKING_OK again within 5 frames (its Sim(3)-aligned position
    error, the winning branch and the inliers are printed);
-9. loop_path: the same configuration on the long bench's revisit scene
+9. map_io: the main run's final map saved to a temporary npz and
+   loaded into a fresh System on the card (every field equal under
+   torch.equal, same dtype), which must relocalize within 3 mapped
+   frames without initializing;
+10. loop_path: the same configuration on the long bench's revisit scene
    (bench.py SLAM_BENCH_LONG: the seed-11 world on trajectory_laps with
    1000 frames over 6 laps), its first 260 frames, or 334 (two laps)
    when no closure has been applied by frame 260, with the launch count
@@ -53,29 +57,61 @@ Phases, each printing one JSON line:
    programs, the device memory peak of each global slice. It fails
    unless a closure is applied, 8 global slices run and tracking is OK
    on 80% of the frames after the first apply;
-10. loop_parity: the card's map at the first verified closure goes to a
+11. loop_parity: the card's map at the first verified closure goes to a
    card System and a CPU System: _loop_sim3 with the same injected
    Gumbel draws (verdict, candidate and match count exact, inliers +-2,
    s/R/t 1e-4), _loop_apply with the run's LoopSim3 (keyframe poses and
    landmarks 1e-3, both reprojection medians 1e-3 relative) and the
    run's first _global_slice (1e-3); on the card, _loop_apply and
    _global_slice repeated from the same inputs must be bit-equal;
+12. long_session: compaction on the card, tests/test_covisibility.py's
+   140-frame arc at 640x480 with the flagship ORB and landmark table, a
+   10-keyframe table, BA window 4 and that test's tracking overrides:
+   more keyframes inserted than the table holds, at least one
+   compaction, over 100 frames OK and 8 of the last 10, one FAST launch
+   per make_frame; compactions, forced culls and the ms of each step;
+13. atlas_path: tests/test_atlas.py's 210-frame occlusion scene at
+   640x480 with the flagship ORB and map and that test's overrides: a
+   map must freeze and weld back (the atlas empty at the end), 8 of the
+   last 10 frames OK, one FAST launch per make_frame; the freeze and
+   weld frames, imported keyframes and landmarks, the frozen map's
+   device bytes and the ms of the weld probe, the cross-map Sim(3), the
+   weld and the global slices;
+14. long_parity: card against CPU on the maps of phases 12 and 13:
+   _compact_step on a culled map and _forced_cull_step (every field
+   equal), the cross-map candidate (id exact, score 1e-6 relative),
+   _atlas_sim3 with one injected CPU Gumbel draw (verdict, match count
+   and inlier mask exact, s/R/t 1e-5) and _atlas_weld under the run's
+   Sim(3) (integers and booleans exact, floats 1e-6 of each field's
+   largest magnitude); the forced cull of phase 13's final map (the
+   flagship 256 / 16384 table; one keyframe culled) and the compaction
+   of the card's culled map (every field equal); one global slice after
+   the weld timed on the card alone; repeats of each on the card
+   bit-equal;
 
-then the kernels summary line and, last, {"ok": true, "device": ...}.
+Phases 12 and 13 run in a second process (``chip_smoke.py --sessions
+DIR``), started after phase 5 and running beside phases 6-11, so the
+times of phases 6-13 are taken beside the other process (run
+``--sessions DIR`` alone for phases 12 and 13 by themselves); their
+lines are printed after phase 11's. Then the kernels summary line and, last, {"ok": true, "device":
+...}.
 Any failed check exits non-zero; a watchdog ends the run after 290 s.
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -91,6 +127,9 @@ RELOC_FRAMES = 5                # mapped frames allowed to relocalize
 LOOP_TRAJ_FRAMES, LOOP_LAPS = 1000, 6
 LOOP_FRAMES, LOOP_FRAMES_MAX = 260, 334
 LOOP_MIN_OK_AFTER = 0.8         # tracked share of frames after the apply
+MAP_IO_RELOC_FRAMES = 3         # mapped frames a loaded map may take
+# The long session: tests/test_covisibility.py's arc and keyframe table.
+LONG_FRAMES, LONG_MK, LONG_MIN_OK = 140, 10, 100
 LOOP_PROGRAMS = ("_loop_candidate", "_loop_sim3", "_loop_apply",
                  "_global_slice")
 # H100 SXM (NVIDIA data sheet): HBM bandwidth, and fp32 outside the
@@ -110,9 +149,20 @@ OLD_OPS_PER_PIXEL = 424
 SPIN_CYCLES = 100_000_000       # ~50 ms at the H100's 1.98 GHz SM clock
 
 
+_CHILDREN = []                  # processes this run started
+
+
+def _stop_children():
+    for child in _CHILDREN:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
 def _watchdog(signum, frame):
     print(f"chip_smoke: watchdog fired after {WATCHDOG_S} s", file=sys.stderr,
           flush=True)
+    _stop_children()
     os._exit(3)
 
 
@@ -610,20 +660,24 @@ def reloc_phase(system, frames, ts, gt, est_ts, est_pos):
 
 
 class Rendered:
-    """Frames of a trajectory, rendered on first use (a 640x480 render
-    takes tens of ms on the host)."""
+    """Frames of a trajectory of (R, t) poses, rendered to uint8 on first
+    use (a 640x480 render takes tens of ms on the host); a pose of None
+    is a black frame."""
 
-    def __init__(self, world, Rs, tls, n):
-        self.world, self.Rs, self.tls, self.n = world, Rs, tls, n
+    def __init__(self, world, poses):
+        self.world, self.poses = world, list(poses)
         self._cache = {}
 
     def __len__(self):
-        return self.n
+        return len(self.poses)
 
     def __getitem__(self, k):
         if k not in self._cache:
-            self._cache[k] = np.round(self.world.render(
-                self.Rs[k], self.tls[k])).astype(np.uint8)
+            pose = self.poses[k]
+            self._cache[k] = (
+                np.zeros((self.world.H, self.world.W), np.uint8)
+                if pose is None else
+                np.round(self.world.render(*pose)).astype(np.uint8))
         return self._cache[k]
 
 
@@ -634,7 +688,7 @@ def kf_ate(system, ts, gt):
 
 
 def loop_path(torch, System, cfg, fast_cuda):
-    """Phase 9: the revisit session on the card, with the loop programs
+    """Phase 10: the revisit session on the card, with the loop programs
     timed and the inputs of the first verified closure, its apply and
     its first global slice kept for loop_parity."""
     from send_slam_tpu_torch.io.evaluate import (
@@ -648,7 +702,7 @@ def loop_path(torch, System, cfg, fast_cuda):
                                         laps=LOOP_LAPS)
     ts, Rs, tls = ts[:LOOP_FRAMES_MAX], Rs[:LOOP_FRAMES_MAX], \
         tls[:LOOP_FRAMES_MAX]
-    frames = Rendered(world, Rs, tls, LOOP_FRAMES_MAX)
+    frames = Rendered(world, zip(Rs, tls))
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
 
     system = System(cfg, device="cuda")
@@ -763,7 +817,7 @@ def _rel_err(a, b):
 
 
 def loop_parity(torch, System, cfg, kept):
-    """Phase 10: the loop programs on the card against the CPU from the
+    """Phase 11: the loop programs on the card against the CPU from the
     card's state at the first verified closure, and their repeats on
     the card."""
     from send_slam_tpu_torch.models.loop_closing import LoopSim3, N_HYP
@@ -860,6 +914,523 @@ def loop_parity(torch, System, cfg, kept):
     return res
 
 
+def map_io_phase(torch, System, cfg, system, frames, ts):
+    """Phase 9: the main run's final map saved and loaded into a fresh
+    System on the card (every field equal, same dtype), which must then
+    relocalize on mapped frames without initializing."""
+    from send_slam_tpu_torch.models.map_state import MapState
+    from send_slam_tpu_torch.models.system import TRACKING_OK
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        t0 = time.perf_counter()
+        system.save_map(path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
+        fresh = System(cfg, device="cuda")
+        t0 = time.perf_counter()
+        fresh.load_map(path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    differ = [f.name for f in dataclasses.fields(MapState)
+              if not (getattr(fresh.map, f.name).dtype
+                      == getattr(system.map, f.name).dtype
+                      and getattr(fresh.map, f.name).device.type == "cuda"
+                      and getattr(fresh.map, f.name).equal(
+                          getattr(system.map, f.name)))]
+    n_kf = int(fresh.map.n_kf)
+    states = []
+    first = len(frames) // 3
+    for i in range(MAP_IO_RELOC_FRAMES):
+        out = fresh.track_monocular(frames[first + i],
+                                    100.0 + float(ts[first + i]))
+        states.append(out.tracking_state)
+        if out.tracking_state == TRACKING_OK:
+            break
+    res = dict(phase="map_io", file_bytes=size, save_ms=save_ms,
+               load_ms=load_ms, fields_differing=differ, keyframes=n_kf,
+               landmarks=int(fresh.map.n_landmarks()), states=states,
+               init_attempts=fresh.init_attempts,
+               reloc=fresh.last_reloc)
+    emit(res)
+    if differ:
+        fail(f"map I/O round trip differs in {differ}")
+    if TRACKING_OK not in states or fresh.init_attempts:
+        fail(f"the loaded map did not relocalize within "
+             f"{MAP_IO_RELOC_FRAMES} mapped frames without initializing "
+             f"(states {states}, init attempts {fresh.init_attempts})")
+    return res
+
+
+def _arc_poses(n):
+    """tests/test_covisibility.py's long-session arc: 3.5 m forward with
+    a 0.3 rad yaw, over ``n`` frames."""
+    poses = []
+    for k in range(n):
+        a = k / (n - 1)
+        c = np.array([3.5 * a, 0.1 * np.sin(2 * np.pi * a), 0.5 * a])
+        cy, sy = np.cos(-0.3 * a), np.sin(-0.3 * a)
+        R = np.array([[cy, 0.0, sy], [0.0, 1.0, 0.0], [-sy, 0.0, cy]]).T
+        poses.append((R, -R @ c))
+    return poses
+
+
+def _session_ates(system, run, poses, ts):
+    """The streamed ATE and the end keyframe ATE of a session against
+    the poses of its rendered frames."""
+    from send_slam_tpu_torch.io.evaluate import ate_rmse
+    seen = [k for k, p in enumerate(poses) if p is not None]
+    gt_ts = np.asarray(ts)[seen]
+    gt = np.asarray([-poses[k][0].T @ poses[k][1] for k in seen])
+    kts, kpos, _ = system.keyframe_poses()
+    return dict(
+        streamed_ate_m=(ate_rmse(run["est_ts"], run["est_pos"], gt_ts, gt)
+                        if len(run["est_ts"]) >= 3 else None),
+        kf_ate_end_m=(ate_rmse(kts, kpos, gt_ts, gt) if len(kts) >= 3
+                      else None))
+
+
+def _map_bytes(m):
+    return sum(getattr(m, f.name).nbytes for f in dataclasses.fields(m))
+
+
+def long_session(torch, System, cfg, fast_cuda):
+    """Phase 12: compaction on the card. The long-session arc of
+    tests/test_covisibility.py at 640x480 with the flagship ORB and
+    landmark table and that test's 10-keyframe table, BA window 4 and
+    tracking overrides; the inputs of the first forced cull and of the
+    compaction after it are kept for long_parity."""
+    from send_slam_tpu_torch.config import MapConfig
+    from send_slam_tpu_torch.models.system import TRACKING_OK
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+    cfg = cfg.replace(
+        map=MapConfig(max_keyframes=LONG_MK, max_landmarks=16384,
+                      ba_window=4),
+        tracking=dataclasses.replace(
+            cfg.tracking, init_min_matches=50, kf_max_interval=6,
+            pipeline_depth=1, pipeline_stretch=1))
+    world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
+                           fy=520.0)
+    poses = _arc_poses(LONG_FRAMES)
+    frames = Rendered(world, poses)
+    ts = [k / 30.0 for k in range(LONG_FRAMES)]
+    system = System(cfg, device="cuda")
+    ms = time_calls(torch, system, ("_compact_step", "_forced_cull_step"))
+    keep = dict(cull=None, compact=None)
+    calls = dict(compact=0, cull=0)
+    for name in ("_compact_step", "_forced_cull_step"):
+        def call(m, _fn=getattr(system, name), _n=name):
+            if _n == "_forced_cull_step":
+                calls["cull"] += 1
+                if keep["cull"] is None:
+                    keep["cull"] = m
+            else:
+                calls["compact"] += 1
+                if keep["cull"] is not None and keep["compact"] is None:
+                    keep["compact"] = m
+            return _fn(m)
+        setattr(system, name, call)
+    fast_cuda.launches = 0
+    system.frames_extracted = 0
+    run = drive(torch, system, frames, ts)
+    launches, n_extracted = fast_cuda.launches, system.frames_extracted
+    states = run["states"]
+    n_ok = sum(st == TRACKING_OK for st in states)
+    tail_ok = sum(st == TRACKING_OK for st in states[-10:])
+    res = dict(
+        phase="long_session",
+        scene=f"SyntheticWorld(n_points=900, 640x480, fx=fy=520), the arc "
+              f"of tests/test_covisibility.py, {LONG_FRAMES} frames",
+        config=f"flagship ORB, MapConfig(max_keyframes={LONG_MK}, "
+               f"max_landmarks=16384, ba_window=4), init_min_matches=50, "
+               f"kf_max_interval=6, pipeline_depth=1, pipeline_stretch=1",
+        frames=len(states), ok_frames=n_ok, ok_last_10=tail_ok,
+        keyframes_inserted=int(system._n_kf_host),
+        slots_used=system._slots_used,
+        compactions=calls["compact"] - calls["cull"],
+        forced_culls=calls["cull"], compact_step_calls=calls["compact"],
+        tracked=len(run["est_ts"]), **_session_ates(system, run, poses, ts),
+        ms_per_call=ms, landmarks=run["landmarks"],
+        frames_through_make_frame=n_extracted, fast_launches=launches,
+        median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
+                                     if len(run["t_ok"]) > 1 else None),
+        seconds=run["seconds"])
+    emit(res)
+    if launches != n_extracted or launches == 0:
+        fail(f"long session: {launches} FAST launches for {n_extracted} "
+             "frames (expected one per make_frame)")
+    if not (system._n_kf_host > LONG_MK and res["compactions"] >= 1):
+        fail(f"long session: {system._n_kf_host} keyframes inserted into a "
+             f"table of {LONG_MK}, {res['compactions']} compactions")
+    if not (n_ok > LONG_MIN_OK and tail_ok >= 8):
+        fail(f"long session: {n_ok} of {len(states)} frames OK, {tail_ok} "
+             "of the last 10")
+    if keep["compact"] is None:
+        fail("long session: no forced cull, so no culled map to compare")
+    return res, keep
+
+
+def _atlas_world():
+    """tests/test_atlas.py's world: regions A and B of 600 points each,
+    rendered at 640x480 with fx = fy = 520."""
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+    world = SyntheticWorld(n_points=1200, width=640, height=480, fx=520.0,
+                           fy=520.0)
+    rng = np.random.default_rng(5)
+    world.points = np.concatenate([
+        rng.uniform([-6, -4.5, 3], [2, 4.5, 10], (600, 3)),
+        rng.uniform([8, -4.5, 3], [16, 4.5, 10], (600, 3))])
+    return world
+
+
+def atlas_poses():
+    """tests/test_atlas.py's 210 frames: 45 of region A, 15 black while
+    the camera jumps, 30 of region B, 110 back towards A, a hold of 10."""
+    def at(x):
+        return np.eye(3), -np.array([x, 0.0, 0.0])
+    return ([at(1.2 * k / 44) for k in range(45)] + [None] * 15
+            + [at(10.0 - 0.8 * k / 29) for k in range(30)]
+            + [at(9.2 - 8.2 * k / 109) for k in range(110)]
+            + [at(1.0)] * 10)
+
+
+ATLAS_PROGRAMS = ("_atlas_cand", "_atlas_sim3", "_atlas_weld",
+                  "_global_slice")
+ATLAS_FAILED_FROM = 150         # the failed verification kept: first from here
+
+
+def atlas_path(torch, System, cfg, fast_cuda):
+    """Phase 13: freeze and weld on the card, with the atlas programs
+    timed. Kept for long_parity: the inputs of the first weld probe, of
+    the verified cross-map Sim(3), of the weld and of the first global
+    slice after it, and the final map; and for
+    scripts/atlas_verdicts.py the first failed verification at or past
+    frame ATLAS_FAILED_FROM."""
+    from send_slam_tpu_torch.models.system import TRACKING_OK
+    cfg = cfg.replace(tracking=dataclasses.replace(
+        cfg.tracking, pipeline_stretch=1, init_min_matches=40,
+        kf_max_interval=5, atlas_reloc_patience=8, atlas_min_kf=5))
+    poses = atlas_poses()
+    frames = Rendered(_atlas_world(), poses)
+    ts = [k / 30.0 for k in range(len(frames))]
+    system = System(cfg, device="cuda")
+    ms = time_calls(torch, system, ATLAS_PROGRAMS)
+    frame_now = [0]
+    ev = dict(freeze=[], weld=[], sim3=[], cand=None, slice=None)
+    freeze = system._freeze_to_atlas
+
+    def on_freeze():
+        freeze()
+        ev["freeze"].append(dict(frame=frame_now[0],
+                                 frozen_map_bytes=_map_bytes(
+                                     system.atlas[-1]),
+                                 keyframes=int(system.atlas[-1].n_kf)))
+
+    system._freeze_to_atlas = on_freeze
+    cand, sim3, weld = (system._atlas_cand, system._atlas_sim3,
+                        system._atlas_weld)
+
+    def on_cand(fz, sig):
+        if ev["cand"] is None:
+            ev["cand"] = (fz, sig)
+        return cand(fz, sig)
+
+    def on_sim3(*a):
+        out = sim3(*a)
+        ev["sim3"].append(dict(args=a, out=out, frame=frame_now[0]))
+        return out
+
+    def on_weld(*a):
+        out = weld(*a)
+        ev["weld"].append(dict(args=a, frame=frame_now[0],
+                               kf_imported=int(out[1]),
+                               lm_imported=int(out[2])))
+        return out
+
+    system._atlas_cand, system._atlas_sim3, system._atlas_weld = \
+        on_cand, on_sim3, on_weld
+    glob = system._global_slice
+
+    def on_slice(*a):
+        if ev["weld"] and ev["slice"] is None:
+            ev["slice"] = a
+        return glob(*a)
+
+    system._global_slice = on_slice
+
+    def after_frame(k, s):
+        frame_now[0] = k + 1
+
+    fast_cuda.launches = 0
+    system.frames_extracted = 0
+    run = drive(torch, system, frames, ts, after_frame=after_frame)
+    launches, n_extracted = fast_cuda.launches, system.frames_extracted
+    states = run["states"]
+    tail_ok = sum(st == TRACKING_OK for st in states[-10:])
+    res = dict(
+        phase="atlas_path",
+        scene="tests/test_atlas.py's two-region world (1200 points) at "
+              "640x480, fx=fy=520: 45 frames of A, 15 black, 30 of B, 110 "
+              "back towards A, 10 held",
+        config="flagship ORB and map, pipeline_stretch=1, "
+               "init_min_matches=40, kf_max_interval=5, "
+               "atlas_reloc_patience=8, atlas_min_kf=5",
+        frames=len(states),
+        ok_frames=sum(st == TRACKING_OK for st in states),
+        ok_last_10=tail_ok, freezes=ev["freeze"],
+        weld_attempts=[dict(frame=e["frame"], ok=bool(e["out"].ok),
+                            n_matches=int(e["out"].n_matches),
+                            n_inliers=int(e["out"].sim3.n_inliers),
+                            s=float(e["out"].sim3.s)) for e in ev["sim3"]],
+        welds=[{k: v for k, v in e.items() if k != "args"}
+               for e in ev["weld"]],
+        welds_done=system.welds_done, atlas_left=len(system.atlas),
+        tracked=len(run["est_ts"]), **_session_ates(system, run, poses, ts),
+        keyframes=int(system.map.n_kf), landmarks=run["landmarks"],
+        polish_slices=run["polish_slices"], ms_per_call=ms,
+        frames_through_make_frame=n_extracted, fast_launches=launches,
+        median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
+                                     if len(run["t_ok"]) > 1 else None),
+        seconds=run["seconds"])
+    emit(res)
+    if launches != n_extracted or launches == 0:
+        fail(f"atlas path: {launches} FAST launches for {n_extracted} "
+             "frames (expected one per make_frame)")
+    if not ev["freeze"]:
+        fail("atlas path: no map froze")
+    if not (system.welds_done >= 1 and not system.atlas):
+        fail(f"atlas path: {system.welds_done} welds, {len(system.atlas)} "
+             "maps left in the atlas")
+    if tail_ok < 8:
+        fail(f"atlas path: {tail_ok} of the last 10 frames OK")
+    verified = [e for e in ev["sim3"] if bool(e["out"].ok)]
+    failed = [e for e in ev["sim3"] if not bool(e["out"].ok)
+              and e["frame"] >= ATLAS_FAILED_FROM]
+    if ev["slice"] is None:
+        fail("atlas path: no global slice ran after the weld")
+    return res, dict(cand=ev["cand"], sim3=verified[0]["args"],
+                     weld=ev["weld"][0]["args"], slice=ev["slice"],
+                     final=system.map,
+                     sim3_failed=failed[0] if failed else None)
+
+
+def _pack(x):
+    """MapStates and tensors in ``x`` moved to the CPU, MapStates as
+    field dicts (for torch.save)."""
+    if dataclasses.is_dataclass(x):
+        return {"__map__": {f.name: getattr(x, f.name).cpu()
+                            for f in dataclasses.fields(x)}}
+    if isinstance(x, (tuple, list)):
+        return tuple(_pack(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _pack(v) for k, v in x.items()}
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def _unpack(x, dev):
+    """The inverse of _pack, onto ``dev``."""
+    from send_slam_tpu_torch.models.map_state import MapState
+    if isinstance(x, dict) and "__map__" in x:
+        return MapState(**{k: v.to(dev) for k, v in x["__map__"].items()})
+    if isinstance(x, tuple):
+        return tuple(_unpack(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _unpack(v, dev) for k, v in x.items()}
+    return x.to(dev) if hasattr(x, "to") else x
+
+
+def flagship_config():
+    """The flagship configuration with bench.py's camera."""
+    from send_slam_tpu_torch.config import CameraConfig, EngineConfig
+    return EngineConfig(camera=CameraConfig(
+        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
+
+
+def sessions_main(outdir: str) -> int:
+    """Phases 12 and 13 in a process of their own, which main() starts
+    after the main path so that they run beside phases 6-11: their JSON
+    lines go to standard output, what long_parity needs to
+    ``outdir/kept.pt``."""
+    signal.signal(signal.SIGALRM, _watchdog)
+    signal.alarm(WATCHDOG_S)
+    import torch
+    torch.set_num_threads(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from send_slam_tpu_torch.models.system import System
+    from send_slam_tpu_torch.ops import fast_cuda
+    fast_cuda.load()
+    cfg = flagship_config()
+    _, kept_long = long_session(torch, System, cfg, fast_cuda)
+    _, kept_atlas = atlas_path(torch, System, cfg, fast_cuda)
+    kept_atlas.pop("sim3_failed")
+    torch.save(_pack(dict(kept_long, **kept_atlas)),
+               os.path.join(outdir, "kept.pt"))
+    return 0
+
+
+def join_sessions(torch, child, outdir):
+    """Wait for the sessions process, re-emit its lines, and return
+    (long_session's result, atlas_path's result, the kept inputs on the
+    card)."""
+    rc = child.wait()
+    with open(os.path.join(outdir, "sessions.out")) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    for ln in lines:
+        print(ln, flush=True)
+    if rc != 0:
+        with open(os.path.join(outdir, "sessions.err")) as f:
+            err = f.read()[-3000:]
+        fail(f"the long and atlas sessions exited with {rc}:\n{err}")
+    phases = {}
+    for ln in lines:
+        if ln.startswith("{"):
+            obj = json.loads(ln)
+            phases[obj.get("phase")] = obj
+    kept = _unpack(torch.load(os.path.join(outdir, "kept.pt"),
+                              weights_only=True), "cuda")
+    return phases["long_session"], phases["atlas_path"], kept
+
+
+def _fields_close(a, b, rel):
+    """Integer and boolean fields of two maps equal, float fields within
+    ``rel`` of the field's largest magnitude. Returns (equal, worst)."""
+    from send_slam_tpu_torch.models.map_state import map_to_numpy
+    a, b = map_to_numpy(a), map_to_numpy(b)
+    same, worst = True, 0.0
+    for f in a:
+        if a[f].dtype != b[f].dtype or a[f].shape != b[f].shape:
+            return False, float("inf")
+        if a[f].dtype.kind == "f":
+            e = _max_err(a[f], b[f]) / max(float(np.abs(b[f]).max()), 1e-9)
+            worst = max(worst, e)
+            same &= e <= rel
+        else:
+            same &= bool(np.array_equal(a[f], b[f]))
+    return same, worst
+
+
+def long_parity(torch, System, kept, cfg):
+    """Phase 14: the capacity and atlas programs on the card against the
+    CPU, from the maps of long_session and atlas_path (``kept``: the
+    inputs of the first forced cull, of the compaction after it, of the
+    first weld probe, of the verified cross-map Sim(3), of the weld, and
+    atlas_path's final map), and their repeats on the card. The forced
+    cull and the compaction run on both tables: long_session's 10 slots,
+    and atlas_path's final map at the flagship 256, force-culled and the
+    card's culled map compacted. One global slice after the weld is
+    timed on the card alone (and repeated bit for bit)."""
+    from send_slam_tpu_torch.models.loop_closing import N_HYP
+    from send_slam_tpu_torch.models.map_state import MapState
+    from send_slam_tpu_torch.models.sim3_solver import gumbel_noise
+
+    def to(m, dev):
+        return MapState(**{f.name: getattr(m, f.name).to(dev)
+                           for f in dataclasses.fields(MapState)})
+
+    sides = dict(cuda=System(cfg, device="cuda"),
+                 cpu=System(cfg, device="cpu"))
+    card_ms = time_calls(torch, sides["cuda"], (
+        "_compact_step", "_forced_cull_step") + ATLAS_PROGRAMS[:3])
+    flag = System(cfg, device="cuda")      # the 256-slot calls, timed apart
+    flag_ms = time_calls(torch, flag, ("_compact_step", "_forced_cull_step",
+                                       "_global_slice"))
+    final = kept["final"]
+    fz_c, sig = kept["cand"]
+    act_s, fz_s, ka, kf, _ = kept["sim3"]
+    act_w, fz_w, s, R, t = kept["weld"]
+    noise = gumbel_noise(torch.Generator().manual_seed(8),
+                         (N_HYP, act_s.n_keypoints), "cpu")
+    out = {}
+    for name, sy in sides.items():
+        dev = sy.device
+        t0 = time.perf_counter()
+        out[name] = dict(
+            compact=sy._compact_step(to(kept["compact"], dev)),
+            cull=sy._forced_cull_step(to(kept["cull"], dev)),
+            cand=sy._atlas_cand(to(fz_c, dev), sig.to(dev)),
+            sim3=sy._atlas_sim3(to(act_s, dev), to(fz_s, dev), ka, kf.to(dev),
+                                noise.to(dev)),
+            weld=sy._atlas_weld(to(act_w, dev), to(fz_w, dev), s.to(dev),
+                                R.to(dev), t.to(dev)),
+            seconds=time.perf_counter() - t0)
+    g, c = out["cuda"], out["cpu"]
+    checks = {}
+    checks["cand"] = (int(g["cand"][0]) == int(c["cand"][0])
+                      and _rel_err(g["cand"][1], c["cand"][1]) <= 1e-6)
+    sg, sc = g["sim3"], c["sim3"]
+    srt_err = max(_max_err(getattr(sg.sim3, f).cpu(), getattr(sc.sim3, f))
+                  for f in ("s", "R", "t"))
+    checks["sim3"] = (bool(sg.ok) == bool(sc.ok)
+                      and int(sg.n_matches) == int(sc.n_matches)
+                      and sg.sim3.inlier.cpu().equal(sc.sim3.inlier)
+                      and srt_err <= 1e-5)
+    weld_same, weld_rel = _fields_close(g["weld"][0], c["weld"][0], 1e-6)
+    checks["weld"] = weld_same and all(
+        int(x) == int(y) for x, y in zip(g["weld"][1:], c["weld"][1:]))
+
+    # The flagship table: the final map force-culled on each side, then
+    # the card's culled map compacted on each side.
+    g["cull_256"] = flag._forced_cull_step(final)
+    c["cull_256"] = sides["cpu"]._forced_cull_step(to(final, "cpu"))
+    g["compact_256"] = flag._compact_step(g["cull_256"][0])
+    c["compact_256"] = sides["cpu"]._compact_step(to(g["cull_256"][0], "cpu"))
+    for prog in ("compact", "cull", "cull_256", "compact_256"):
+        checks[prog] = (_fields_close(g[prog][0], c[prog][0], 0.0)[0]
+                        and g[prog][1].cpu().equal(c[prog][1]))
+    g["slice"] = flag._global_slice(*kept["slice"])
+
+    # Repeats on the card from the same inputs: bit for bit.
+    sy = sides["cuda"]
+    rep = dict(
+        compact=sy._compact_step(to(kept["compact"], "cuda")),
+        cull=sy._forced_cull_step(to(kept["cull"], "cuda")),
+        cand=sy._atlas_cand(fz_c, sig),
+        sim3=sy._atlas_sim3(act_s, fz_s, ka, kf, noise.cuda()),
+        weld=sy._atlas_weld(act_w, fz_w, s, R, t),
+        cull_256=flag._forced_cull_step(final),
+        compact_256=flag._compact_step(g["cull_256"][0]),
+        slice=flag._global_slice(*kept["slice"]))
+    bits = {}
+    for prog in ("compact", "cull", "weld", "cull_256", "compact_256",
+                 "slice"):
+        bits[prog] = _maps_equal(rep[prog][0], g[prog][0]) and all(
+            x.equal(y) for x, y in zip(rep[prog][1:], g[prog][1:]))
+    bits["cand"] = all(x.equal(y) for x, y in zip(rep["cand"], g["cand"]))
+    bits["sim3"] = (rep["sim3"].ok.equal(sg.ok)
+                    and rep["sim3"].n_matches.equal(sg.n_matches)
+                    and all(x.equal(y) for x, y in zip(rep["sim3"].sim3,
+                                                       sg.sim3)))
+    res = dict(
+        phase="long_parity",
+        tolerances=dict(integers_booleans="exact", compact_cull="every "
+                        "field equal", sim3_srt=1e-5,
+                        weld_floats_rel=1e-6),
+        checks=checks, repeat_bit_equal=bits,
+        compact_n_valid=int(c["compact"][1]), culled=int(c["cull"][1]),
+        table_256=dict(slots_in=int(final.n_kf),
+                       valid_in=int(final.kf_valid.sum()),
+                       culled=int(c["cull_256"][1]),
+                       compact_n_valid=int(c["compact_256"][1])),
+        cand=[int(c["cand"][0]), float(c["cand"][1])],
+        sim3=dict(ok=bool(sc.ok), n_matches=int(sc.n_matches),
+                  n_inliers=int(sc.sim3.n_inliers), s=float(sc.sim3.s),
+                  srt_err=srt_err),
+        weld=dict(kf_imported=int(c["weld"][1]),
+                  lm_imported=int(c["weld"][2]), float_rel_err=weld_rel),
+        card_ms_per_call=card_ms, card_ms_per_call_256=flag_ms,
+        cpu_seconds=c["seconds"])
+    emit(res)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        fail(f"card vs CPU differ beyond tolerance in {bad}")
+    bad = [k for k, v in bits.items() if not v]
+    if bad:
+        fail(f"repeats on the card not bit-equal: {bad}")
+    if res["table_256"]["culled"] != 1:
+        fail("the forced cull of the 256-slot map culled "
+             f"{res['table_256']['culled']} keyframes, not 1")
+    return res
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -870,9 +1441,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from send_slam_tpu_torch.config import (
-        CameraConfig, EngineConfig,
-    )
     from send_slam_tpu_torch.io.evaluate import ate_rmse
     from send_slam_tpu_torch.models.frame import make_frame
     from send_slam_tpu_torch.models.map_state import map_to_numpy
@@ -903,8 +1471,7 @@ def main() -> int:
     # --- 2 + 3. kernel vs plain on the card, and its times -----------------
     kc = kernel_check(torch, fast_cuda, fast_ops, level_shapes)
     emit(dict(phase="kernel_check", **kc))
-    cfg = EngineConfig(camera=CameraConfig(
-        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
+    cfg = flagship_config()
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
     ts, Rs, tls = world.trajectory(n_frames=N_FRAMES)
@@ -961,6 +1528,19 @@ def main() -> int:
         fail(f"{launches} FAST launches for {n_extracted} frames "
              "(expected one per make_frame)")
 
+    # --- 12 + 13 start: the long and atlas sessions in a second process,
+    # beside phases 6-11 (their frames are host-bound, as the main
+    # path's are, and the card has room for both).
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    atexit.register(_stop_children)       # a failed check exits early
+    with open(os.path.join(tmp, "sessions.out"), "w") as out, \
+            open(os.path.join(tmp, "sessions.err"), "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sessions", tmp],
+            stdout=out, stderr=err)
+    _CHILDREN.append(child)
+
     # --- 6 + 7. replay on a fresh System, carried state held card vs CPU --
     snaps = []
 
@@ -1010,15 +1590,24 @@ def main() -> int:
     emit(dict(phase="relocalization", reloc_step_ms=reloc_ms["_reloc_step"],
               **reloc_phase(system, frames, ts, gt, est_ts, pos)))
 
-    # --- 9 + 10. the loop session, its programs card vs CPU ---------------
+    # --- 9. map I/O of the main run's final map ---------------------------
+    map_io_phase(torch, System, cfg, system, frames, ts)
+
+    # --- 10 + 11. the loop session, its programs card vs CPU --------------
     lp, kept = loop_path(torch, System, cfg, fast_cuda)
     loop_parity(torch, System, cfg, kept)
+
+    # --- 12-14. compaction, the atlas, their programs card vs CPU ---------
+    ls, ap, kept = join_sessions(torch, child, tmp)
+    long_parity(torch, System, kept, cfg)
 
     emit({"kernels": [{
         "name": "fast_score", "route": "cuda",
         "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
         "replaces": "send_slam_tpu/ops/pallas/fast_kernel.py:226",
         "launches": launches, "loop_path_launches": lp["fast_launches"],
+        "long_session_launches": ls["fast_launches"],
+        "atlas_path_launches": ap["fast_launches"],
         "max_abs_err": kc["max_abs_err"],
         "max_abs_diff": kc["max_abs_err"],
         "ms": kt["ms"], "launch_interval_ms": kt["launch_interval_ms"],
@@ -1033,4 +1622,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--sessions":
+        sys.exit(sessions_main(sys.argv[2]))
     sys.exit(main())

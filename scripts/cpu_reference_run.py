@@ -1,10 +1,13 @@
-"""chip_smoke.py's main path or its loop session on the CPU, in either
-package.
+"""chip_smoke.py's main path, its loop session, its long session or its
+atlas scene on the CPU, in either package.
 
     JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax
     python scripts/cpu_reference_run.py --package torch
     python scripts/cpu_reference_run.py --package torch --scene laps \
         --frames 260
+    python scripts/cpu_reference_run.py --package torch --scene long
+    JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax \
+        --scene atlas
 
 Runs ``System.track_monocular`` at chip_smoke.py's configuration
 (640x480, 1250 features, 8 levels, 256 keyframes, 16384 landmarks, BA
@@ -19,6 +22,17 @@ keyframes, the init commit time and every failed collapse probe (commit
 time, probe time, velocity ratio); with loop closing, every loop attempt
 with the frame that recorded it, the frame of the first applied closure
 and the keyframe ATE just before it and at the end.
+
+``--scene long`` is chip_smoke.py's long_session (tests/
+test_covisibility.py's 140-frame arc at 640x480, the flagship ORB and
+landmark table, a 10-keyframe table, BA window 4 and that test's
+tracking overrides) and ``--scene atlas`` its atlas_path (tests/
+test_atlas.py's 210-frame occlusion scene at 640x480, the flagship ORB
+and map, that test's overrides); both take their frame count from the
+scene, and add the compactions and forced culls, each freeze and weld
+with its frame, every cross-map Sim(3) verification (frame, verdict,
+matches, inliers), and the frames OK (tracking state 2) among the last
+10.
 
 The port draws its RANSAC samples from a CPU generator on every device,
 so ``--package torch`` here takes the same draws as the port's run on
@@ -43,7 +57,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "torch"), required=True)
-    ap.add_argument("--scene", choices=("bench", "laps"), default="bench")
+    ap.add_argument("--scene", choices=("bench", "laps", "long", "atlas"),
+                    default="bench")
     ap.add_argument("--frames", type=int, default=90)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
@@ -59,19 +74,44 @@ def main() -> int:
         from send_slam_tpu_torch import config as C
         from send_slam_tpu_torch.models import system as S
         make = (lambda cfg: S.System(cfg, device="cpu"))
+    import chip_smoke
     from send_slam_tpu_torch.io.evaluate import ate_rmse
     from send_slam_tpu_torch.utils.synth import SyntheticWorld
 
-    cfg = C.EngineConfig(camera=C.CameraConfig(
-        width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
+    cam = C.CameraConfig(width=640, height=480, fx=520.0, fy=520.0,
+                         cx=320.0, cy=240.0)
+    cfg = C.EngineConfig(camera=cam)
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
+    poses = None
     if args.scene == "laps":
         ts, Rs, tls = world.trajectory_laps(n_frames=1000, laps=6)
         ts, Rs, tls = ts[:args.frames], Rs[:args.frames], tls[:args.frames]
+    elif args.scene == "long":
+        cfg = C.EngineConfig(
+            camera=cam, map=C.MapConfig(max_keyframes=chip_smoke.LONG_MK,
+                                        max_landmarks=16384, ba_window=4),
+            tracking=C.TrackingConfig(init_min_matches=50, kf_max_interval=6,
+                                      pipeline_depth=1, pipeline_stretch=1))
+        world = SyntheticWorld(n_points=900, width=640, height=480,
+                               fx=520.0, fy=520.0)
+        poses = chip_smoke._arc_poses(chip_smoke.LONG_FRAMES)
+    elif args.scene == "atlas":
+        cfg = C.EngineConfig(camera=cam, tracking=C.TrackingConfig(
+            pipeline_stretch=1, init_min_matches=40, kf_max_interval=5,
+            atlas_reloc_patience=8, atlas_min_kf=5))
+        world = chip_smoke._atlas_world()
+        poses = chip_smoke.atlas_poses()
     else:
         ts, Rs, tls = world.trajectory(n_frames=args.frames)
-    gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
+    if poses is not None:
+        args.frames = len(poses)
+        ts = np.arange(len(poses)) / 30.0
+        Rs = [p[0] if p else None for p in poses]
+        tls = [p[1] if p else None for p in poses]
+    seen = [k for k in range(args.frames) if Rs[k] is not None]
+    gt_ts = np.asarray(ts)[seen]
+    gt = np.asarray([-Rs[k].T @ tls[k] for k in seen])
     s = make(cfg)
     probes = []
     retry = S.System._collapse_retry
@@ -87,7 +127,7 @@ def main() -> int:
 
     def kf_ate():
         kts, kpos, _ = s.keyframe_poses()
-        return (ate_rmse(np.asarray(kts), np.asarray(kpos), ts, gt)
+        return (ate_rmse(np.asarray(kts), np.asarray(kpos), gt_ts, gt)
                 if len(kts) >= 3 else float("inf"))
 
     frame, applies = [0], []
@@ -98,6 +138,35 @@ def main() -> int:
         return apply(*a)
 
     s._loop_apply = spy_apply
+    events = dict(compact_steps=0, forced_culls=0, freezes=[], welds=[])
+
+    def count_calls(name, key):
+        fn = getattr(s, name)
+
+        def call(*a):
+            out = fn(*a)
+            if isinstance(events[key], list):
+                events[key].append(frame[0])
+            else:
+                events[key] += 1
+            return out
+        setattr(s, name, call)
+
+    verifications = []
+    sim3 = s._atlas_sim3
+
+    def spy_sim3(*a):
+        out = sim3(*a)
+        verifications.append((frame[0], out))
+        return out
+
+    s._atlas_sim3 = spy_sim3
+    for name, key in (("_compact_step", "compact_steps"),
+                      ("_forced_cull_step", "forced_culls"),
+                      ("_freeze_to_atlas", "freezes"),
+                      ("_atlas_weld", "welds")):
+        count_calls(name, key)
+    states = []
     live = backfilled = 0
     est, attempts = [], []
     t0 = time.perf_counter()
@@ -112,9 +181,11 @@ def main() -> int:
 
     for k in range(args.frames):
         frame[0] = k
-        take(s.track_monocular(
-            np.round(world.render(Rs[k], tls[k])).astype(np.uint8),
-            float(ts[k])))
+        img = (np.zeros((world.H, world.W), np.uint8) if Rs[k] is None else
+               np.round(world.render(Rs[k], tls[k])).astype(np.uint8))
+        out = s.track_monocular(img, float(ts[k]))
+        states.append(out.tracking_state)
+        take(out)
         while len(attempts) < len(s.loop_attempts):
             att = s.loop_attempts[len(attempts)]
             attempts.append(dict(frame=k, attempt=list(att)))
@@ -122,7 +193,7 @@ def main() -> int:
         take(out)
     est.sort(key=lambda e: e[0])
     ate = ate_rmse([e[0] for e in est], np.asarray([e[1] for e in est]),
-                   ts, gt) if len(est) >= 3 else float("inf")
+                   gt_ts, gt) if len(est) >= 3 else float("inf")
     applied = [a for a in attempts if a["attempt"][3] is True]
     print(json.dumps(dict(
         package=args.package, scene=args.scene, frames=args.frames,
@@ -133,6 +204,15 @@ def main() -> int:
         loops_closed=s.loops_closed, applies=applies,
         first_applied_verdict_frame=applied[0]["frame"] if applied else None,
         kf_ate_end_m=kf_ate(),
+        ok_frames=sum(st == 2 for st in states),
+        ok_last_10=sum(st == 2 for st in states[-10:]),
+        compactions=events["compact_steps"] - events["forced_culls"],
+        forced_culls=events["forced_culls"], freeze_frames=events["freezes"],
+        weld_frames=events["welds"],
+        weld_verifications=[
+            dict(frame=k, ok=bool(r.ok), n_matches=int(r.n_matches),
+                 n_inliers=int(r.sim3.n_inliers)) for k, r in verifications],
+        welds_done=s.welds_done, atlas_left=len(s.atlas),
         seconds=time.perf_counter() - t0)), flush=True)
     return 0
 

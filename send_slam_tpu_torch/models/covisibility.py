@@ -4,9 +4,9 @@ redundant-keyframe culling and the essential graph's edges.
 Counterpart of the ported part of ``send_slam_tpu/models/
 covisibility.py``: the covisibility graph is recomputed on demand as one
 (MK, ML) @ (ML, MK) product of the keyframe/landmark indicator; it gives
-the local-BA window, the wide polish window, redundant-keyframe culling
-and the pose graph's covisibility and chain edges. Compaction belongs to
-capacity management, which a later slice ports.
+the local-BA window, the wide polish window, redundant-keyframe culling,
+the pose graph's covisibility and chain edges, and the table compaction
+of capacity management.
 """
 
 from __future__ import annotations
@@ -173,3 +173,44 @@ def cull_redundant_keyframes(m: MapState, redundancy_th: float = 0.9,
                           ref)
     m = m.replace(kf_valid=kf_valid, kf_obs_lm=obs, lm_ref_kf=new_ref)
     return m, cand.sum(dtype=torch.int32)
+
+
+def compact_keyframes(m: MapState):
+    """Pack the valid keyframes to the front of the table, keeping their
+    order, and remap ``lm_ref_kf``. Returns (map, n_valid). As in the
+    reference, the freed tail of the pose, timestamp, keypoint,
+    descriptor and octave rows holds copies of slot MK - 1's."""
+    MK = m.max_keyframes
+    dev = m.device
+    ids = torch.arange(MK, dtype=torch.int32, device=dev)
+    valid = m.kf_valid & (ids < m.n_kf)
+    rank = (torch.cumsum(valid.to(torch.int32), 0) - 1).to(torch.int32)
+    n_valid = valid.sum(dtype=torch.int32)
+    old_of = set_rows(torch.full((MK,), MK - 1, dtype=torch.int64,
+                                 device=dev),
+                      torch.where(valid, rank, torch.full_like(rank, MK)),
+                      ids.to(torch.int64))
+    slot_ok = ids < n_valid
+
+    def take(arr, fill=None):
+        out = arr[old_of]
+        if fill is None:
+            return out
+        ok = slot_ok.reshape((MK,) + (1,) * (arr.dim() - 1))
+        return torch.where(ok, out, torch.full_like(out, fill))
+
+    ref = m.lm_ref_kf
+    ref_c = torch.clamp(ref, 0, MK - 1).long()
+    new_ref = torch.where((ref >= 0) & valid[ref_c], rank[ref_c],
+                          torch.full_like(ref, -1))
+    m = m.replace(
+        kf_R=take(m.kf_R), kf_t=take(m.kf_t),
+        kf_timestamp=take(m.kf_timestamp), kf_valid=slot_ok,
+        kf_uv=take(m.kf_uv), kf_desc=take(m.kf_desc),
+        kf_octave=take(m.kf_octave),
+        kf_kp_valid=take(m.kf_kp_valid, fill=False),
+        kf_obs_lm=take(m.kf_obs_lm, fill=-1),
+        kf_signature=take(m.kf_signature, fill=0.0),
+        kf_chain_break=take(m.kf_chain_break, fill=False),
+        lm_ref_kf=new_ref, n_kf=n_valid)
+    return m, n_valid

@@ -16,7 +16,11 @@ and loop closing: a retrieval probe at each keyframe, the Sim(3)
 verification of its candidates, the pose-graph correction committed at
 once and judged by a reprojection sanity gate a frame later (rolled back
 on failure), then the queued global polish slices over every keyframe
-slot.
+slot; capacity management (the keyframe table compacted, with one
+keyframe force-culled when compaction frees too little); the atlas (a
+map frozen on a long relocalization failure, kept on the device, and
+welded back under a cross-map Sim(3) when a new keyframe retrieves it);
+and map checkpoints in the JAX package's npz format.
 
 What the JAX package's jitted programs decide with ``lax.cond`` is a
 Python branch here. Randomness (RANSAC minimal sets and the loop
@@ -29,10 +33,7 @@ System reads the loop phases' scalars through background fetches with
 blocking reads; the port reads them synchronously at the same points,
 one phase per drained frame, so the cadence is the same.
 
-Refused at construction: pyramid scales other than 1.2. Not ported: the
-atlas weld, so a relocalization timeout that would keep a frozen map
-(``max_atlas_maps > 0``) raises NotImplementedError; keyframe
-compaction, so reaching the keyframe capacity raises; and map I/O.
+Refused at construction: pyramid scales other than 1.2.
 """
 
 from __future__ import annotations
@@ -50,8 +51,13 @@ from send_slam_tpu_torch.geometry.se3 import (
     quat_from_rotmat, se3_compose, se3_exp, se3_inverse, se3_log, so3_exp,
     so3_log,
 )
+from send_slam_tpu_torch.io import map_io
+from send_slam_tpu_torch.models.atlas import (
+    best_cross_map_candidate, cross_map_sim3, weld_maps,
+)
 from send_slam_tpu_torch.models.covisibility import (
-    covis_window_ids, cull_redundant_keyframes, wide_window_ids,
+    compact_keyframes, covis_window_ids, cull_redundant_keyframes,
+    wide_window_ids,
 )
 from send_slam_tpu_torch.models.frame import Frame, make_frame
 from send_slam_tpu_torch.models.initializer import InitResult, two_view_init
@@ -203,6 +209,10 @@ class System:
         self.last_reloc: Optional[dict] = None
         self.loops_closed = 0
         self.session_loops_applied = 0
+        # Frozen maps, kept on the device, and the welds done (both
+        # survive reset()).
+        self.atlas: List[MapState] = []
+        self.welds_done = 0
         self.reset()
 
     # ------------------------------------------------------------------
@@ -252,6 +262,9 @@ class System:
         # Polish queue: (kind, lam, prune) slices, one per frame.
         self._polish_queue: List[tuple] = []
         self._young_polish_done = False
+        self._compact_cooldown = 0
+        # The atlas weld probe or verification in flight.
+        self._pending_weld: Optional[dict] = None
         # Set by _collapse_retry after its own reset, cleared by any
         # other: arms the young one-anchor re-solve.
         self._had_collapse_reset = False
@@ -516,6 +529,44 @@ class System:
         m = prune_zero_obs_landmarks(m)
         m, _ = cull_redundant_keyframes(m, max_cull=2)
         return m
+
+    @staticmethod
+    def _compact_step(m: MapState):
+        """Pack the keyframe table. Returns (map, n_valid)."""
+        return compact_keyframes(m)
+
+    @staticmethod
+    def _forced_cull_step(m: MapState):
+        """Capacity-pressure cull: when the table fills and no keyframe
+        crossed the redundancy bar, drop the single most redundant
+        unprotected keyframe. Returns (map, n_culled)."""
+        return cull_redundant_keyframes(m, redundancy_th=0.0, keep_latest=3,
+                                        max_cull=1)
+
+    def _covis_window(self, m: MapState) -> torch.Tensor:
+        return covis_window_ids(m, self.cfg.map.ba_window)[0]
+
+    @staticmethod
+    def _atlas_cand(frozen: MapState, sig):
+        """The frozen map's best keyframe for a signature: (kf, score)."""
+        return best_cross_map_candidate(frozen, sig)
+
+    def _atlas_noise(self, m: MapState) -> torch.Tensor:
+        """One (n_hyp, N) draw of Gumbel noise for ``_atlas_sim3``, from
+        the System's CPU generator."""
+        return gumbel_noise(self._gen, (N_HYP, m.n_keypoints), self.device)
+
+    def _atlas_sim3(self, active: MapState, frozen: MapState, active_kf,
+                    frozen_kf, noise):
+        """The cross-map Sim(3) between a keyframe of each map."""
+        tr = self.cfg.tracking
+        return cross_map_sim3(active, frozen, active_kf, frozen_kf, noise,
+                              tr, min_matches=tr.loop_min_matches)
+
+    @staticmethod
+    def _atlas_weld(active: MapState, frozen: MapState, s, R, t):
+        """Import the frozen map: (map, n_kf_imported, n_lm_imported)."""
+        return weld_maps(active, frozen, s, R, t)
 
     def _newest_kf_delta(self, m_pre: MapState, m_post: MapState):
         cur = torch.clamp(m_pre.n_kf - 1, 0, m_pre.max_keyframes - 1).long()
@@ -929,11 +980,10 @@ class System:
                 self._held_outputs = []
 
         self._maybe_close_loop()
+        self._maybe_weld()
         if s[S_KF] > 0.5:
             self._on_keyframe_inserted(int(s[S_SLOT]), n_kf, ts, pos, quat)
-        if n_kf >= self.cfg.map.max_keyframes - 2:
-            raise NotImplementedError(
-                "keyframe table full: compaction is not ported yet")
+        self._maybe_compact(n_kf)
 
         if self._collapse_active:
             self._held_outputs.append((ts, np.asarray(pos),
@@ -998,17 +1048,14 @@ class System:
             self._freeze_to_atlas()
 
     def _freeze_to_atlas(self) -> None:
-        """Drop the active map and start a fresh one, keeping the
-        session's trajectories, epoch, RANSAC stream, init counters and
-        loop attempts (an applied closure awaiting its verdict is
-        dropped unjudged, as in the reference).
-        Keeping the frozen map needs the atlas weld, which is not
-        ported: with ``max_atlas_maps > 0`` this raises."""
-        if self.cfg.tracking.max_atlas_maps > 0:
-            raise NotImplementedError(
-                "freezing a map into the atlas needs the atlas weld "
-                "(models/atlas.py weld_maps), which is not ported yet; "
-                "set max_atlas_maps = 0 to drop the map instead")
+        """Park the active map in the atlas (the oldest dropped beyond
+        ``max_atlas_maps``) and start a fresh one, keeping the session's
+        trajectories, epoch, RANSAC stream, init counters and loop
+        attempts (an applied closure awaiting its verdict is dropped
+        unjudged, as in the reference)."""
+        self.atlas.append(self.map)
+        if len(self.atlas) > self.cfg.tracking.max_atlas_maps:
+            self.atlas.pop(0)
         traj, kf_traj = self._trajectory, self._kf_trajectory
         gen_state = self._gen.get_state()
         t0 = self._t0
@@ -1113,6 +1160,76 @@ class System:
         self.loop_attempts.append((p["kf_slot"], p["cand_top"], p["score"],
                                    verified, applied))
 
+    def _maybe_weld(self) -> None:
+        """One weld phase per drained frame. Phase 1 reads each frozen
+        map's best retrieval score for the newest keyframe: above
+        loop_score_min, the best map's candidate is Sim(3)-verified
+        against it, with one draw from the generator. Phase 2 reads the
+        verdict: a verified weld (after judging a pending loop verdict,
+        whose rollback map predates the import) imports the frozen map,
+        drops it from the atlas and queues the global polish slices."""
+        p = self._pending_weld
+        if p is None:
+            return
+        tr = self.cfg.tracking
+        self._pending_weld = None
+        if "res" not in p:                      # phase 1: the scores
+            scores = [float(sc) for _, sc in p["cands"]]
+            best_i = int(np.argmax(scores))
+            if scores[best_i] <= tr.loop_score_min:
+                return
+            fz = self.atlas[best_i]
+            res = self._atlas_sim3(self.map, fz, p["kf_slot"],
+                                   p["cands"][best_i][0],
+                                   self._atlas_noise(fz))
+            self._pending_weld = dict(best_i=best_i, res=res)
+            return
+
+        best_i, res = p["best_i"], p["res"]     # phase 2: the verdict
+        if not bool(res.ok) or best_i >= len(self.atlas):
+            return
+        self._resolve_loop_sanity()
+        self.map, _n_kf_imp, _n_lm_imp = self._atlas_weld(
+            self.map, self.atlas[best_i], res.sim3.s, res.sim3.R,
+            res.sim3.t)
+        self.atlas.pop(best_i)
+        self._slots_used = int(self.map.n_kf)
+        self._n_kf_host = max(self._n_kf_host, self._slots_used)
+        self._enqueue_polish("global", tr.global_ba_slices)
+        self.welds_done += 1
+        self._pending_loop = None               # slot ids predate the import
+        self._st = self._st.replace(ba_window=self._covis_window(self.map))
+
+    def _maybe_compact(self, n_kf_lagged: int) -> None:
+        """Capacity management. The frame step stops inserting at
+        MK - 1; when the lagged count reaches MK - 2 the table is
+        compacted, and if that frees too little the most redundant
+        keyframe is culled and the table compacted again. A cooldown
+        keeps a full table that nothing can free from compacting every
+        frame."""
+        MK = self.cfg.map.max_keyframes
+        if self._compact_cooldown > 0:
+            self._compact_cooldown -= 1
+            return
+        if n_kf_lagged < MK - 2:
+            return
+        # A pending loop verdict's rollback map predates the compaction.
+        self._resolve_loop_sanity()
+        self._compact_cooldown = self.cfg.tracking.kf_min_interval + 1
+        self.map, n_valid = self._compact_step(self.map)
+        self._slots_used = int(n_valid)
+        # Slot ids moved: the pending probes and the window are stale.
+        self._pending_loop = None
+        self._pending_weld = None
+        self._loop_consistency = None
+        self._st = self._st.replace(ba_window=self._covis_window(self.map))
+        if self._slots_used >= MK - 2:
+            self.map, _n = self._forced_cull_step(self.map)
+            self.map, n_valid = self._compact_step(self.map)
+            self._slots_used = int(n_valid)
+            self._st = self._st.replace(
+                ba_window=self._covis_window(self.map))
+
     def _enqueue_polish(self, kind: str, n_slices: int) -> None:
         """Queue ``n_slices`` one-iteration slices with a halving
         damping (floored at 1%); pruning on the last slice only."""
@@ -1158,6 +1275,13 @@ class System:
             cands, scores = self._loop_candidate(self.map, kf_slot)
             self._pending_loop = dict(kf_slot=kf_slot, cands=cands,
                                       scores=scores)
+        # Atlas weld probe: the new keyframe's signature against every
+        # frozen map's keyframe table, read on the next drained frame.
+        if self.atlas and self._pending_weld is None:
+            sig = self.map.kf_signature[kf_slot]
+            self._pending_weld = dict(
+                kf_slot=kf_slot,
+                cands=[self._atlas_cand(fz, sig) for fz in self.atlas])
 
     # ------------------------------------------------------------------
     # Outputs
@@ -1195,8 +1319,19 @@ class System:
         pending collapse probe. Idempotent."""
         return self._flush_pipeline(final=True)
 
-    def save_map(self, path=None):
-        raise NotImplementedError("map I/O is not ported yet")
+    def save_map(self, path: Optional[str] = None) -> str:
+        """Checkpoint the map (``io/map_io.py``); returns the path."""
+        return map_io.save_map(self.map, path)
 
-    def load_map(self, path=None):
-        raise NotImplementedError("map I/O is not ported yet")
+    def load_map(self, path: Optional[str] = None) -> None:
+        """Resume from a checkpoint on this System's device: the System
+        is LOST, so tracking restarts by relocalizing against the loaded
+        map. The file's capacities are taken as they are, as in the
+        reference."""
+        self.map = map_io.load_map(path, device=self.device)
+        self._n_kf_host = int(self.map.n_kf)
+        self._slots_used = self._n_kf_host
+        self.state = TRACKING_LOST
+        self._init_frames.clear()
+        self._lost_frames = 0
+        self._st = self._st.replace(ba_window=self._covis_window(self.map))

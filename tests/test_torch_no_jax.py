@@ -27,6 +27,9 @@ _CHILD = textwrap.dedent("""
     import send_slam_tpu_torch
     mods = [m.name for m in pkgutil.walk_packages(
         send_slam_tpu_torch.__path__, "send_slam_tpu_torch.")]
+    for name in ("send_slam_tpu_torch.models.atlas",
+                 "send_slam_tpu_torch.io.map_io"):
+        assert name in mods, name
     for name in mods:
         importlib.import_module(name)
     import chip_smoke  # main() stays behind __name__ == "__main__"
@@ -66,11 +69,14 @@ def test_system_without_card_raises():
         System(EngineConfig())
 
 
-def test_system_refuses_unported_features():
+def test_system_refuses_unported_features(tmp_path):
     """The JAX package's default configuration constructs, loop closing
     on, and so do BA windows up to the keyframe capacity; only other
     pyramid scales are refused at construction, and ``slice_config``
-    (which turned loop closing off) is gone."""
+    (which turned loop closing off) is gone. Under the default
+    configuration nothing raises at the freeze (the map is kept in the
+    atlas), at the keyframe capacity (the table is compacted) or at map
+    save and load."""
     from send_slam_tpu_torch.config import EngineConfig, MapConfig, OrbConfig
     from send_slam_tpu_torch.models import system as tsys
     cfg = EngineConfig()
@@ -83,3 +89,14 @@ def test_system_refuses_unported_features():
     with pytest.raises(NotImplementedError, match="scale_factor"):
         tsys.System(cfg.replace(orb=OrbConfig(scale_factor=1.3)),
                     device="cpu")
+
+    assert cfg.tracking.max_atlas_maps > 0
+    s.state = tsys.TRACKING_OK
+    s._maybe_compact(cfg.map.max_keyframes - 2)
+    assert s._slots_used == 0 and s._compact_cooldown > 0
+    s.save_map(str(tmp_path / "map.npz"))
+    s.load_map(str(tmp_path / "map.npz"))
+    assert s.state == tsys.TRACKING_LOST
+    frozen = s.map
+    s._freeze_to_atlas()
+    assert len(s.atlas) == 1 and s.atlas[0] is frozen

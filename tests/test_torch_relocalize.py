@@ -218,10 +218,10 @@ def test_reloc_step_from_carried_map(carried, kidnapped):
 
 @pytest.mark.parametrize("max_atlas_maps", [0, 4])
 def test_atlas_freeze(max_atlas_maps):
-    """Relocalization that keeps failing freezes the map. With
-    ``max_atlas_maps = 0`` the freeze drops the map and starts afresh,
-    keeping the trajectory (as the JAX package does); keeping a frozen
-    map needs the atlas weld, which is not ported, so it raises."""
+    """Relocalization that keeps failing freezes the map and starts
+    afresh, keeping the trajectory (as the JAX package does). With
+    ``max_atlas_maps = 0`` the frozen map is dropped; otherwise it is
+    kept in the atlas."""
     import dataclasses
     from test_torch_system import engine_cfg
     cfg = engine_cfg(tc)
@@ -236,18 +236,20 @@ def test_atlas_freeze(max_atlas_maps):
         s.track_monocular(np.round(w.render(Rs[k], tls[k])).astype(np.uint8),
                           float(ts[k]))
     assert int(s.map.n_kf) > 5
+    mapped = s.map
     traj = s.trajectory()
     blank = np.full((240, 320), 20, np.uint8)
     feed = (s.track_monocular(blank, float(ts[-1]) + 0.03 * i)
             for i in range(1, 40))
-    if max_atlas_maps:
-        with pytest.raises(NotImplementedError, match="atlas weld"):
-            while True:
-                next(feed)
-        return
     while s.state != tsys.TRACKING_NO_IMAGES_YET:
         next(feed)
     assert int(s.map.n_kf) == 0 and s._reloc_failures == 0
+    if max_atlas_maps:
+        assert len(s.atlas) == 1
+        assert int(s.atlas[0].n_kf) >= int(mapped.n_kf)
+        assert s.atlas[0].kf_valid.device.type == "cpu"
+    else:
+        assert s.atlas == []
     kept = [t for t, _, _ in s.trajectory()]
     assert kept[:len(traj)] == [t for t, _, _ in traj]
     assert s._t0 == float(ts[0])
