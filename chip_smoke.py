@@ -29,10 +29,36 @@ Phases, each printing one JSON line:
    launch per make_frame, collapse retries included). Poses are counted
    as bench.py counts them: live OK outputs, every backfill triple and
    the shutdown drain;
-6. replay: the same run on a fresh System in the same process; every
-   emitted pose, the keyframe and the landmark counts must be
-   bit-equal to the first run's;
-7. step_parity: at 3 tracked frames of the replay, the carried map and
+5a. server_path: the drop-in backend, ``server.backend_client``'s
+   ``BackendClient`` on the card, dials the reference's host played
+   here on a loopback listener: the flagship camera's calibration
+   packet (its default config is then the flagship one; it warms up),
+   phase 5's 90 frames as the host sends them (P6, each gray value in
+   three channels, 921,615 bytes), each sent once the backend has
+   tracked the one before, then ``terminate``. Every pose packet must
+   equal phase 5's (its backfill, then its live pose stamped with the
+   frame's timestamp) bit for bit, in number and order; the PPM decode
+   must return each image exactly through the native library; the TUM
+   file must hold one line per keyframe of the final map; one FAST
+   launch per make_frame, the warmup's included. Prints the warmup's
+   seconds (this one and a second one on a fresh System; phase 1's
+   build time beside them), ms from packet out to pose back, the host
+   costs of the wire per frame and the bytes of a frame and a pose
+   packet;
+6. replay: phase 5a is a same-seed run on a fresh System in the same
+   process: its whole trajectory (the shutdown drain included), the
+   keyframe and landmark counts and the polish slices must be bit-equal
+   to phase 5's; ms per call of the backfill, wide and young slices;
+5b. app_path: ``server.app``'s ``Application`` on the card over the
+   first 60 frames written as P6 files and replayed at 5 fps, ports 0:
+   this script's own WebSocket client (raw socket, masked frames) reads
+   ``/client`` until 12 live poses came, ``GET /metrics`` must count
+   frames and two keyframes, ``GET /`` the panel page, and a raw TCP
+   probe of the :tcp listener must decode a ``frame`` packet equal to
+   the producer's frame; frames published, dropped by the bus and
+   tracked, the /client latency from frame publish to pose JSON, one
+   FAST launch per make_frame;
+7. step_parity: at 3 tracked frames of the main path, the carried map and
    loop state go to a card System and a CPU System, and each runs
    _frame_step on the next image, one wide and one young polish slice,
    and _reloc_step on an earlier image with the same injected RANSAC
@@ -89,20 +115,27 @@ Phases, each printing one JSON line:
    the weld timed on the card alone; repeats of each on the card
    bit-equal;
 
-Phases 12 and 13 run in a second process (``chip_smoke.py --sessions
-DIR``), started after phase 5 and running beside phases 6-11, so the
-times of phases 6-13 are taken beside the other process (run
-``--sessions DIR`` alone for phases 12 and 13 by themselves); their
-lines are printed after phase 11's. Then the kernels summary line and, last, {"ok": true, "device":
+The phases run in the order 1-5, 5a, 6, 5b, 7-14. Phases 12 and 13 run
+in a second process (``chip_smoke.py --sessions DIR``), started after
+phase 5b and running beside phases 7-11, so the times of phases 7-13
+are taken beside the other process (run ``--sessions DIR`` alone for
+phases 12 and 13 by themselves); their lines are printed after phase
+11's. Then the kernels summary line and, last, {"ok": true, "device":
 ...}.
 Any failed check exits non-zero; a watchdog ends the run after 290 s.
-It imports nothing of JAX or of the JAX package.
+It imports nothing of JAX or of the JAX package, nor ``msgpack``,
+``aiohttp`` or ``cv2``, which the card's machine lacks.
 """
 
 from __future__ import annotations
 
+import asyncio
 import atexit
+import base64
+import contextlib
 import dataclasses
+import hashlib
+import io
 import json
 import os
 import re
@@ -130,6 +163,13 @@ LOOP_MIN_OK_AFTER = 0.8         # tracked share of frames after the apply
 MAP_IO_RELOC_FRAMES = 3         # mapped frames a loaded map may take
 # The long session: tests/test_covisibility.py's arc and keyframe table.
 LONG_FRAMES, LONG_MK, LONG_MIN_OK = 140, 10, 100
+# The application session: the first APP_FRAMES main-path frames as P6
+# files, replayed at APP_FPS (under the engine's ~80-190 ms per frame on
+# the card), until APP_POSES live poses (not late backfill ones) came
+# over /client.
+APP_FRAMES, APP_FPS, APP_POSES = 60, 5.0, 12
+# Steps timed in the served replay of the main path (phase 6).
+REPLAY_TIMED = ("_backfill_step", "_wide_slice", "_young_slice")
 LOOP_PROGRAMS = ("_loop_candidate", "_loop_sim3", "_loop_apply",
                  "_global_slice")
 # H100 SXM (NVIDIA data sheet): HBM bandwidth, and fp32 outside the
@@ -452,10 +492,13 @@ def drive(torch, system, frames, ts, after_frame=None, stop=None):
     shutdown; count poses as bench.py does (live OK outputs, backfill
     triples, the shutdown drain). Returns the emitted (timestamp,
     position, orientation) list in emission order, the time-ordered
-    estimate, each frame's tracking state and the per-frame ms of live
-    OK frames (each frame ends in a device sync)."""
+    estimate, each frame's tracking state, the per-frame ms of live
+    OK frames (each frame ends in a device sync) and ``wire``, the
+    triples a backend sends for these frames in its order (no shutdown
+    drain)."""
     from send_slam_tpu_torch.models.system import TRACKING_OK
     emitted, t_ok, live, backfilled, states = [], [], 0, 0, []
+    wire = []
     t_run = time.perf_counter()
 
     def take(out):
@@ -474,6 +517,11 @@ def drive(torch, system, frames, ts, after_frame=None, stop=None):
         if out.tracking_state == TRACKING_OK:
             t_ok.append((time.perf_counter() - t0) * 1e3)
         take(out)
+        # What the backend sends for this frame: the backfill, then the
+        # live pose stamped with the frame's own timestamp.
+        wire.extend(out.backfill)
+        if out.tracking_state == TRACKING_OK:
+            wire.append((float(ts[k]), out.position, out.orientation))
         states.append(out.tracking_state)
         if after_frame is not None:
             after_frame(k, system)
@@ -484,7 +532,7 @@ def drive(torch, system, frames, ts, after_frame=None, stop=None):
     torch.cuda.synchronize()
     order = np.argsort(np.asarray([e[0] for e in emitted]), kind="stable")
     return dict(emitted=emitted, live=live, backfilled=backfilled, t_ok=t_ok,
-                states=states,
+                states=states, wire=wire,
                 est_ts=[emitted[i][0] for i in order],
                 est_pos=np.asarray([emitted[i][1] for i in order],
                                    np.float64).reshape(-1, 3),
@@ -1247,7 +1295,7 @@ def flagship_config():
 
 def sessions_main(outdir: str) -> int:
     """Phases 12 and 13 in a process of their own, which main() starts
-    after the main path so that they run beside phases 6-11: their JSON
+    after the server phases so that they run beside phases 7-11: their JSON
     lines go to standard output, what long_parity needs to
     ``outdir/kept.pt``."""
     signal.signal(signal.SIGALRM, _watchdog)
@@ -1431,6 +1479,495 @@ def long_parity(torch, System, kept, cfg):
     return res
 
 
+# ---------------------------------------------------------------------------
+# The server entry points: a WebSocket and HTTP client of this script's
+# own, the drop-in backend against a host played here, the application.
+
+WS_GUID = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
+
+
+async def _read_head(reader):
+    """An HTTP response head -> (status, {lower-cased name: value})."""
+    lines = (await reader.readuntil(b"\r\n\r\n")).decode(
+        "latin-1").split("\r\n")
+    headers = {}
+    for ln in lines[1:]:
+        if ":" in ln:
+            k, v = ln.split(":", 1)
+            headers[k.strip().lower()] = v.strip()
+    return int(lines[0].split(" ")[1]), headers
+
+
+async def http_get(port, path, host="127.0.0.1"):
+    """GET over a raw connection -> (status, body)."""
+    reader, writer = await asyncio.open_connection(host, port)
+    try:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: {host}:{port}\r\n"
+                     "Connection: close\r\n\r\n".encode())
+        await writer.drain()
+        status, headers = await _read_head(reader)
+        n = headers.get("content-length")
+        body = await (reader.readexactly(int(n)) if n is not None
+                      else reader.read())
+        return status, body
+    finally:
+        writer.close()
+
+
+class WsClient:
+    """A WebSocket client on a raw asyncio connection (RFC 6455): the
+    handshake with its accept key checked, masked frames out, unmasked
+    frames in."""
+
+    def __init__(self, reader, writer):
+        self.reader, self.writer = reader, writer
+
+    @classmethod
+    async def connect(cls, port, path, host="127.0.0.1"):
+        reader, writer = await asyncio.open_connection(host, port)
+        key = base64.b64encode(os.urandom(16)).decode()
+        writer.write((f"GET {path} HTTP/1.1\r\nHost: {host}:{port}\r\n"
+                      "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                      f"Sec-WebSocket-Key: {key}\r\n"
+                      "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        await writer.drain()
+        status, headers = await _read_head(reader)
+        want = base64.b64encode(
+            hashlib.sha1(key.encode() + WS_GUID).digest()).decode()
+        if status != 101 or headers.get("sec-websocket-accept") != want:
+            writer.close()
+            raise ConnectionError(f"WebSocket handshake refused ({status}, "
+                                  f"{headers})")
+        return cls(reader, writer)
+
+    async def send(self, opcode, payload=b""):
+        n, mask = len(payload), os.urandom(4)
+        if n < 126:
+            head = bytes([0x80 | opcode, 0x80 | n])
+        elif n < 1 << 16:
+            head = bytes([0x80 | opcode, 0x80 | 126]) + n.to_bytes(2, "big")
+        else:
+            head = bytes([0x80 | opcode, 0x80 | 127]) + n.to_bytes(8, "big")
+        body = bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+        self.writer.write(head + mask + body)
+        await self.writer.drain()
+
+    async def recv(self):
+        """The next frame: (opcode, payload). Server frames must be
+        unmasked and final."""
+        b0, b1 = await self.reader.readexactly(2)
+        if b1 & 0x80 or not b0 & 0x80:
+            raise ConnectionError(f"bad server frame header {b0:#x} {b1:#x}")
+        n = b1 & 0x7F
+        if n >= 126:
+            n = int.from_bytes(
+                await self.reader.readexactly(2 if n == 126 else 8), "big")
+        return b0 & 0x0F, await self.reader.readexactly(n)
+
+    async def recv_text(self):
+        op, payload = await self.recv()
+        if op != 0x1:
+            raise ConnectionError(f"expected a text frame, got opcode {op}")
+        return payload.decode("utf-8")
+
+    async def close(self, code=1000):
+        """Send a close frame and read frames until the server's close
+        comes back; returns its code."""
+        await self.send(0x8, code.to_bytes(2, "big"))
+        try:
+            while True:
+                op, payload = await self.recv()
+                if op == 0x8:
+                    return int.from_bytes(payload[:2], "big")
+        finally:
+            self.writer.close()
+
+
+def server_path(torch, System, fast_cuda, frames, ts, run, kernel_build_s):
+    """Phase 5a: the drop-in backend (``BackendClient``) on the card,
+    dialling the reference's host played here on a loopback listener:
+    the calibration packet of the flagship camera, then phase 5's frames
+    as the host sends them (P6, each gray value in three channels), one
+    at a time, each after the backend has tracked the one before, then
+    ``terminate``. Every pose packet must equal the main path's, bit for
+    bit, in the backend's order; the backend warms up first."""
+    from send_slam_tpu_torch.io import msgpack_codec, native
+    from send_slam_tpu_torch.io.protocol import (
+        PacketDecoder, build_calibration_packet, build_frame_packet,
+        build_terminate_packet, frame_packet_bytes,
+    )
+    from send_slam_tpu_torch.models.system import TRACKING_OK
+    from send_slam_tpu_torch.server import backend_client as bc
+    os.environ.pop("SLAM_SKIP_WARMUP", None)    # the entry point's default
+    cam = flagship_config().camera
+    n = len(frames)
+    # The host's side of the wire, per frame: P6 encoding, packing; the
+    # backend's unpacking and fused decode + luma, timed here alone.
+    t0 = time.perf_counter()
+    ppms = [native.encode_ppm(np.repeat(f[..., None], 3, axis=2))
+            for f in frames]
+    t1 = time.perf_counter()
+    wire = [frame_packet_bytes(build_frame_packet(
+        0, float(ts[k]), cam.width, cam.height, ppms[k])) for k in range(n)]
+    t2 = time.perf_counter()
+    bodies = [msgpack_codec.unpackb(w[4:]) for w in wire]
+    t3 = time.perf_counter()
+    grays = [native.decode_ppm_gray(b["frame"]) for b in bodies]
+    t4 = time.perf_counter()
+    host = dict(rgb_ppm_encode_ms=(t1 - t0) / n * 1e3,
+                pack_ms=(t2 - t1) / n * 1e3, unpack_ms=(t3 - t2) / n * 1e3,
+                decode_gray_ms=(t4 - t3) / n * 1e3)
+    decode_exact = all(np.array_equal(g, f) for g, f in zip(grays, frames))
+    calib = frame_packet_bytes(build_calibration_packet(
+        0, 0.0, cam.width, cam.height, cam.fx, cam.fy, cam.cx, cam.cy,
+        fps=cam.fps))
+    warm, sig = {}, {}
+
+    step_ms = {n: [] for n in REPLAY_TIMED}
+
+    class Served(System):
+        """The backend's System: its warmup timed, the end of the warmup
+        and each frame's output signalled to the host's event loop, and
+        after the warmup each call of REPLAY_TIMED timed between two
+        device syncs (numerics untouched)."""
+
+        def _timed(self, name, fn, *a, **kw):
+            if "first_s" not in warm:
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def _backfill_step(self, *a, **kw):
+            return self._timed("_backfill_step", super()._backfill_step,
+                               *a, **kw)
+
+        def _wide_slice(self, *a, **kw):
+            return self._timed("_wide_slice", super()._wide_slice, *a, **kw)
+
+        def _young_slice(self, *a, **kw):
+            return self._timed("_young_slice", super()._young_slice, *a,
+                               **kw)
+
+        def warmup(self, *a, **kw):
+            t = time.perf_counter()
+            super().warmup(*a, **kw)
+            torch.cuda.synchronize()
+            warm["first_s"] = time.perf_counter() - t
+            sig["loop"].call_soon_threadsafe(sig["q"].put_nowait, None)
+
+        def track_monocular(self, gray, timestamp):
+            out = super().track_monocular(gray, timestamp)
+            sig["loop"].call_soon_threadsafe(sig["q"].put_nowait, out)
+            return out
+
+    packets, arrivals, waiters, lat = [], {}, [], []
+    tum = tempfile.NamedTemporaryFile(suffix=".txt", delete=False).name
+    atexit.register(lambda: os.path.exists(tum) and os.unlink(tum))
+
+    async def session():
+        sig["loop"], sig["q"] = asyncio.get_running_loop(), asyncio.Queue()
+
+        async def host(reader, writer):
+            async def read_poses():
+                dec = PacketDecoder()
+                while data := await reader.read(1 << 16):
+                    now = time.perf_counter()
+                    for p in dec.feed(data):
+                        packets.append(p)
+                        arrivals.setdefault(p["timestamp"], now)
+                    for w in waiters:
+                        w.set()
+                    waiters.clear()
+
+            async def signal():
+                """The backend's next signal, or its failure."""
+                get = asyncio.ensure_future(sig["q"].get())
+                await asyncio.wait({get, client_task},
+                                   return_when=asyncio.FIRST_COMPLETED)
+                if not get.done():
+                    get.cancel()
+                    client_task.result()
+                    raise RuntimeError("the backend ended early")
+                return get.result()
+
+            async def arrival(key):
+                while key not in arrivals:
+                    w = asyncio.Event()
+                    waiters.append(w)
+                    await asyncio.wait_for(w.wait(), 30)
+                return arrivals[key]
+
+            reading = asyncio.create_task(read_poses())
+            writer.write(calib)
+            await writer.drain()
+            await signal()                      # the warmup's end
+            for k in range(n):
+                t_send = time.perf_counter()
+                writer.write(wire[k])
+                await writer.drain()
+                out = await signal()
+                if out.tracking_state == TRACKING_OK:
+                    lat.append((await arrival(float(ts[k])) - t_send) * 1e3)
+            writer.write(frame_packet_bytes(build_terminate_packet()))
+            await writer.drain()
+            await reading
+            writer.close()
+
+        server = await asyncio.start_server(host, "127.0.0.1", 0)
+        client = bc.BackendClient("127.0.0.1",
+                                  server.sockets[0].getsockname()[1],
+                                  device="cuda")
+        client.trajectory_path = tum
+        client_task = asyncio.create_task(client.run())
+        await client_task
+        server.close()
+        await server.wait_closed()
+        return client
+
+    printed = io.StringIO()
+    bc.System = Served
+    fast_cuda.launches = 0
+    try:
+        with contextlib.redirect_stdout(printed):
+            client = asyncio.run(asyncio.wait_for(session(), 200))
+    finally:
+        bc.System = System
+    launches = fast_cuda.launches
+    system = client.system
+    torch.cuda.synchronize()
+    fast_cuda.launches = 0
+    t = time.perf_counter()
+    System(flagship_config(), device="cuda").warmup()
+    torch.cuda.synchronize()
+    warm_second_s = time.perf_counter() - t
+    warm_launches = fast_cuda.launches      # the warmup's make_frame calls
+
+    want = run["wire"]
+    got = [(p["timestamp"], [p["position"][c] for c in "xyz"],
+            [p["orientation"][c] for c in "xyzw"]) for p in packets]
+    same = (len(got) == len(want) and all(
+        a[0] == b[0] and np.array_equal(np.asarray(a[1]), np.asarray(
+            b[1], np.float64)) and np.array_equal(
+            np.asarray(a[2]), np.asarray(b[2], np.float64))
+        for a, b in zip(got, want)))
+    diff = next(({"index": i, "timestamps": [a[0], b[0]],
+                  "max_abs_diff": _max_err(a[1], b[1])}
+                 for i, (a, b) in enumerate(zip(got, want))
+                 if a[0] != b[0] or not np.array_equal(
+                     np.asarray(a[1]), np.asarray(b[1], np.float64))), None)
+    kf_valid = int(system.map.kf_valid[:int(system.map.n_kf)].sum())
+    with open(tum) as f:
+        tum_lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    report = dict(re.findall(r"^([A-Za-z ]+): (\S+)$", printed.getvalue(),
+                             re.M))
+    # Phase 6, the same-seed replay, is this run: the served System's
+    # whole trajectory (the shutdown drain included), keyframes,
+    # landmarks and polish slices against phase 5's.
+    traj, main_traj = system.trajectory(), run["trajectory"]
+    rdiff = next(({"index": i, "timestamps": [a[0], b[0]],
+                   "max_abs_diff": _max_err(a[1], b[1])}
+                  for i, (a, b) in enumerate(zip(main_traj, traj))
+                  if a[0] != b[0] or not np.array_equal(a[1], b[1])
+                  or not np.array_equal(a[2], b[2])), None)
+    replay_same = (len(traj) == len(main_traj) and rdiff is None
+                   and system._n_kf_host == run["keyframes"]
+                   and int(system.map.n_landmarks()) == run["landmarks"]
+                   and system.polish_slices_run == run["polish_slices"])
+    emit(dict(phase="replay", through="server_path", frames=n,
+              first_difference=rdiff, poses=len(traj),
+              first_run_poses=len(main_traj),
+              keyframes=system._n_kf_host,
+              landmarks=int(system.map.n_landmarks()),
+              first_run_landmarks=run["landmarks"],
+              polish_slices=dict(system.polish_slices_run),
+              bit_equal=replay_same, ms_per_call=step_ms))
+    if not replay_same:
+        fail("server_path: the served session is not a bit-equal replay of "
+             "the main path")
+    res = dict(
+        phase="server_path", frames=n, pose_packets=len(got),
+        expected_packets=len(want),
+        main_path_poses=run["live"] + run["backfilled"],
+        bit_equal=same, first_difference=diff,
+        all_ok=all(p["type"] == "pose" and p["tracking_state"] == TRACKING_OK
+                   and p["camera_id"] == 0 for p in packets),
+        decode_exact=decode_exact, native_library=native.available(),
+        tum_lines=len(tum_lines), final_keyframes=kf_valid,
+        shutdown_report=report, warmup_first_s=warm.get("first_s"),
+        warmup_second_s=warm_second_s, kernel_build_s=kernel_build_s,
+        median_ms_packet_to_pose=(statistics.median(lat[1:])
+                                  if len(lat) > 1 else None),
+        main_path_median_ms_per_tracked_frame=(
+            statistics.median(run["t_ok"][1:]) if len(run["t_ok"]) > 1
+            else None),
+        mean_ms_packet_to_pose=(statistics.fmean(lat[1:])
+                                if len(lat) > 1 else None),
+        frame_packet_bytes=len(wire[0]),
+        pose_packet_bytes=len(frame_packet_bytes(packets[0]))
+        if packets else None,
+        fast_launches=launches, warmup_launches=warm_launches,
+        frames_through_make_frame=system.frames_extracted, **host)
+    emit(res)
+    if not same:
+        fail(f"server_path: the backend's {len(got)} pose packets differ "
+             f"from the main path's {len(want)} ({diff})")
+    if not (res["all_ok"] and decode_exact and res["native_library"]):
+        fail("server_path: a pose packet is not an OK pose of camera 0, "
+             "or the PPM decode is not exact, or the native library did "
+             "not load")
+    if len(tum_lines) != kf_valid or kf_valid < 2 \
+            or any(len(ln.split()) != 8 for ln in tum_lines):
+        fail(f"server_path: {len(tum_lines)} TUM lines for {kf_valid} "
+             "keyframes")
+    if report.get("Frames processed") != str(n):
+        fail(f"server_path: shutdown report {report}")
+    if launches != system.frames_extracted + warm_launches \
+            or warm_launches < 1:
+        fail(f"server_path: {launches} FAST launches for "
+             f"{system.frames_extracted} frames and a warmup of "
+             f"{warm_launches}")
+    return res
+
+
+def app_path(torch, fast_cuda, frames, warm_launches):
+    """Phase 5b: ``Application`` on the card over the first APP_FRAMES
+    frames written as P6, ports 0: the engine, the :tcp listener and the
+    web panel. This script's own WebSocket client reads ``/client``
+    until an OK pose, ``/metrics`` and ``/`` are fetched, and a raw TCP
+    probe decodes a ``frame`` packet."""
+    from send_slam_tpu_torch.config import ServerConfig
+    from send_slam_tpu_torch.io.ppm import decode_ppm, encode_ppm
+    from send_slam_tpu_torch.io.protocol import PacketDecoder
+    from send_slam_tpu_torch.server import bus as topics
+    from send_slam_tpu_torch.server.app import Application
+    os.environ.pop("SLAM_SKIP_WARMUP", None)
+    seq = tempfile.mkdtemp(prefix="chip_smoke_seq_")
+    atexit.register(shutil.rmtree, seq, ignore_errors=True)
+    for k in range(APP_FRAMES):
+        with open(os.path.join(seq, f"{k:06d}.ppm"), "wb") as f:
+            f.write(encode_ppm(np.repeat(frames[k][..., None], 3, axis=2)))
+    base = flagship_config()
+    cfg = base.replace(
+        camera=dataclasses.replace(base.camera, fps=APP_FPS),
+        server=ServerConfig(http_port=0, tcp_port=0))
+    count = dict(published=0, before_engine=0, dropped=0)
+    published, engine_q, live_ts, last = {}, [], set(), [None]
+
+    async def go():
+        app = Application(config=cfg, video=os.path.join(seq, "%06d.ppm"),
+                          run_engine=True, run_tcp=True, run_web=True,
+                          device="cuda")
+        publish = app.bus.publish
+
+        def counted(topic, msg):
+            if topic == topics.CAMERA:
+                subs = app.bus._subs.get(topics.CAMERA, ())
+                if not engine_q and len(subs) == 1:
+                    engine_q.extend(subs)       # the engine's queue
+                count["published"] += 1
+                published[msg.timestamp] = msg.frame
+                if not engine_q:
+                    count["before_engine"] += 1
+                elif engine_q[0].full():
+                    count["dropped"] += 1
+            elif topic == topics.POSE and msg["timestamp"] == last[0]:
+                live_ts.add(msg["timestamp"])   # not a late (backfill) pose
+            publish(topic, msg)
+
+        app.bus.publish = counted
+        await app.start()
+        track = app.engine.system.track_monocular
+
+        def tracked(gray, timestamp):
+            out = track(gray, timestamp)
+            last[0] = timestamp
+            return out
+
+        app.engine.system.track_monocular = tracked
+        try:
+            port = app.web.bound_port
+            ws = await WsClient.connect(port, "/client")
+            lat, late, ok = [], 0, 0
+            while len(lat) < APP_POSES:
+                d = json.loads(await asyncio.wait_for(ws.recv_text(), 120))
+                ok += d["payload"]["tracking_state"] == 2
+                if d["payload"]["timestamp"] in live_ts:
+                    lat.append((time.time() - d["payload"]["timestamp"])
+                               * 1e3)
+                else:
+                    late += 1
+            await ws.close()
+            for _ in range(100):
+                status, body = await http_get(port, "/metrics")
+                metrics = json.loads(body)
+                if metrics.get("n_keyframes", 0) >= 2:
+                    break
+                await asyncio.sleep(0.1)
+            index_status, index = await http_get(port, "/")
+            reader, writer = await asyncio.open_connection(
+                "127.0.0.1", app.tcp.bound_port)
+            dec, pkt = PacketDecoder(), None
+            while pkt is None:
+                data = await asyncio.wait_for(reader.read(1 << 20), 30)
+                if not data:
+                    raise ConnectionError("the :tcp listener hung up")
+                pkt = next((p for p in dec.feed(data)
+                            if p.get("type") == "frame"), None)
+            writer.close()
+            app.engine.stop()                   # between two frames
+            await asyncio.wait_for(app._tasks[0], 60)
+        finally:
+            await app.stop()
+        return app, lat, late, ok, metrics, status, index_status, index, pkt
+
+    fast_cuda.launches = 0
+    t0 = time.perf_counter()
+    app, lat, late, ok, metrics, status, index_status, index, pkt = \
+        asyncio.run(asyncio.wait_for(go(), 180))
+    launches = fast_cuda.launches
+    system = app.engine.system
+    img = decode_ppm(pkt["frame"])
+    probe_equal = np.array_equal(img, published.get(pkt["timestamp"]))
+    probe_source = any(np.array_equal(img, np.repeat(f[..., None], 3, 2))
+                       for f in frames[:APP_FRAMES])
+    res = dict(
+        phase="app_path", frames_written=APP_FRAMES, fps=APP_FPS,
+        frames_published=count["published"],
+        published_before_engine=count["before_engine"],
+        dropped_by_bus=count["dropped"], frames_in=app.engine.frames_in,
+        frames_tracked=app.engine.frames_tracked,
+        live_poses_seen=len(lat), late_poses_seen=late, ok_poses_seen=ok,
+        client_latency_ms=lat,
+        client_latency_ms_median=statistics.median(lat),
+        metrics_status=status, metrics_frames=metrics.get("frames"),
+        metrics_n_keyframes=metrics.get("n_keyframes"),
+        index_status=index_status, index_bytes=len(index),
+        tcp_probe_equal=probe_equal, tcp_probe_source_frame=probe_source,
+        fast_launches=launches,
+        frames_through_make_frame=system.frames_extracted,
+        seconds=time.perf_counter() - t0)
+    emit(res)
+    if ok != len(lat) + late:
+        fail(f"app_path: {len(lat) + late - ok} poses on /client not OK")
+    if not (status == 200 and metrics.get("frames", 0) > 0
+            and metrics.get("n_keyframes", 0) >= 2):
+        fail(f"app_path: /metrics answered {status} {metrics}")
+    if index_status != 200 or b"SEND-SLAM" not in index:
+        fail(f"app_path: GET / answered {index_status}")
+    if not (probe_equal and probe_source):
+        fail("app_path: the :tcp frame packet is not the producer's frame")
+    if launches != system.frames_extracted + warm_launches \
+            or system.frames_extracted < 1:
+        fail(f"app_path: {launches} FAST launches for "
+             f"{system.frames_extracted} frames and a warmup of "
+             f"{warm_launches}")
+    return res
+
+
 def main() -> int:
     signal.signal(signal.SIGALRM, _watchdog)
     signal.alarm(WATCHDOG_S)
@@ -1487,11 +2024,24 @@ def main() -> int:
     emit(dict(phase="frontend_check",
               **frontend_check(torch, make_frame, cfg, frames[0])))
 
+    snaps = []
+
+    def snapshot(k, s):
+        """The carried state after the first tracked frame at or past
+        each of PARITY_FRAMES (with 3 keyframes and a next frame); taken
+        after the frame's timing."""
+        if len(snaps) < len(PARITY_FRAMES) \
+                and k >= PARITY_FRAMES[len(snaps)] and k + 1 < len(frames) \
+                and s.state == TRACKING_OK and int(s.map.n_kf) >= 3:
+            snaps.append(dict(k=k, map=map_to_numpy(s.map),
+                              st=loop_state_to_numpy(s._st), t0=s._t0))
+
     fast_cuda.launches = 0
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    run = drive(torch, system, frames, ts)
+    run = drive(torch, system, frames, ts, after_frame=snapshot)
     launches = fast_cuda.launches
+    run["trajectory"] = system.trajectory()
     n_extracted = system.frames_extracted
 
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
@@ -1528,8 +2078,12 @@ def main() -> int:
         fail(f"{launches} FAST launches for {n_extracted} frames "
              "(expected one per make_frame)")
 
+    # --- 5a (and 6) + 5b. the server entry points at the flagship config --
+    served = server_path(torch, System, fast_cuda, frames, ts, run, build_s)
+    app_run = app_path(torch, fast_cuda, frames, served["warmup_launches"])
+
     # --- 12 + 13 start: the long and atlas sessions in a second process,
-    # beside phases 6-11 (their frames are host-bound, as the main
+    # beside phases 7-11 (their frames are host-bound, as the main
     # path's are, and the card has room for both).
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     atexit.register(shutil.rmtree, tmp, ignore_errors=True)
@@ -1541,47 +2095,10 @@ def main() -> int:
             stdout=out, stderr=err)
     _CHILDREN.append(child)
 
-    # --- 6 + 7. replay on a fresh System, carried state held card vs CPU --
-    snaps = []
-
-    def snapshot(k, s):
-        """The carried state after the first tracked frame at or past
-        each of PARITY_FRAMES (with 3 keyframes and a next frame)."""
-        if len(snaps) < len(PARITY_FRAMES) \
-                and k >= PARITY_FRAMES[len(snaps)] and k + 1 < len(frames) \
-                and s.state == TRACKING_OK and int(s.map.n_kf) >= 3:
-            snaps.append(dict(k=k, map=map_to_numpy(s.map),
-                              st=loop_state_to_numpy(s._st), t0=s._t0))
-
-    replay_sys = System(cfg, device="cuda")
-    step_ms = time_calls(torch, replay_sys, ("_backfill_step", "_wide_slice",
-                                             "_young_slice"))
-    rerun = drive(torch, replay_sys, frames, ts, after_frame=snapshot)
-    same = (len(rerun["emitted"]) == len(run["emitted"])
-            and all(a[0] == b[0] and np.array_equal(a[1], b[1])
-                    and np.array_equal(a[2], b[2])
-                    for a, b in zip(run["emitted"], rerun["emitted"]))
-            and rerun["keyframes"] == run["keyframes"]
-            and rerun["landmarks"] == run["landmarks"])
-    diff = next(({"index": i, "timestamps": [a[0], b[0]],
-                  "max_abs_diff": _max_err(a[1], b[1])}
-                 for i, (a, b) in enumerate(zip(run["emitted"],
-                                                rerun["emitted"]))
-                 if a[0] != b[0] or not np.array_equal(a[1], b[1])
-                 or not np.array_equal(a[2], b[2])), None)
-    emit(dict(phase="replay", frames=N_FRAMES, first_difference=diff,
-              poses=len(rerun["emitted"]), first_run_poses=len(run["emitted"]),
-              keyframes=rerun["keyframes"], landmarks=rerun["landmarks"],
-              first_run_landmarks=run["landmarks"],
-              polish_slices=rerun["polish_slices"], bit_equal=same,
-              ms_per_call={n: v for n, v in step_ms.items()},
-              seconds=rerun["seconds"]))
-    if not same:
-        fail("a same-seed rerun of the main path is not bit-equal to the "
-             "first run")
+    # --- 7. the carried state of phase 5 held card vs CPU -----------------
     if len(snaps) < len(PARITY_FRAMES):
         fail(f"only {len(snaps)} carried states were taken at or past the "
-             f"replay frames {PARITY_FRAMES}: no step parity")
+             f"main path's frames {PARITY_FRAMES}: no step parity")
     emit(dict(phase="step_parity",
               **step_parity(torch, System, cfg, snaps, frames, ts)))
 
@@ -1605,7 +2122,10 @@ def main() -> int:
         "name": "fast_score", "route": "cuda",
         "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
         "replaces": "send_slam_tpu/ops/pallas/fast_kernel.py:226",
-        "launches": launches, "loop_path_launches": lp["fast_launches"],
+        "launches": launches,
+        "server_path_launches": served["fast_launches"],
+        "app_path_launches": app_run["fast_launches"],
+        "loop_path_launches": lp["fast_launches"],
         "long_session_launches": ls["fast_launches"],
         "atlas_path_launches": ap["fast_launches"],
         "max_abs_err": kc["max_abs_err"],

@@ -10,8 +10,12 @@ Layout: ``geometry/`` (SE3, cameras, triangulation, epipolar),
 ``ops/`` (pyramid, FAST with its CUDA kernel in ``csrc/``, ORB, Hamming
 matching, segment sums), ``models/`` (frame, map, tracking, init,
 local BA, local mapping, covisibility, the System facade), ``utils/``
-and ``io/`` (synthetic scenes, trajectory evaluation). Entry points
-default to ``device="cuda"``; see ``device.py``.
+(synthetic scenes, stage timing), ``io/`` (trajectory evaluation, map
+checkpoints, the wire protocol with its own MessagePack codec, PPM and
+the native host-I/O library), ``calib/io.py`` and ``server/`` (the
+drop-in backend, the engine worker, the TCP listener, the web panel on
+its own HTTP/WebSocket server, the application). Entry points default
+to ``device="cuda"``; see ``device.py``.
 """
 
 __version__ = "0.1.0"

@@ -28,7 +28,8 @@ verification's Gumbel draws) comes from a CPU ``torch.Generator`` reset
 with the session, as the JAX System resets its PRNG key; on the CPU, it
 draws the same numbers for a run on the card as for the same run on the
 CPU. The port compiles nothing ahead of a run, so the JAX System's
-warm-up readiness gate (``_tail_ready``) is always open here. The JAX
+warm-up readiness gate (``_tail_ready``) is always open here, and
+``warmup`` runs each step once, synchronously, before the first frame. The JAX
 System reads the loop phases' scalars through background fetches with
 blocking reads; the port reads them synchronously at the same points,
 one phase per drained frame, so the cadence is the same.
@@ -39,6 +40,7 @@ Refused at construction: pyramid scales other than 1.2.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -233,6 +235,85 @@ class System:
             ba_window=torch.full((cfg.map.ba_window,), cfg.map.max_keyframes,
                                  dtype=torch.int32, device=dev),
             weak_run=i32(0))
+
+    # Attributes that survive reset() and that warmup() restores.
+    _SESSION_ATTRS = ("frames_extracted", "_collapse_resets",
+                      "collapse_probes", "polish_slices_run", "last_reloc",
+                      "loops_closed", "session_loops_applied", "atlas",
+                      "welds_done")
+
+    def warmup(self, image_dtype=np.uint8, block: bool = False) -> None:
+        """Run every device step the session can reach once, on dummy
+        inputs at the configured shapes, so that their one-off costs
+        land before the first frame: the FAST kernel's nvcc build and
+        load, the cuBLAS and cuSOLVER handles, the caching allocator's
+        first growth at the configured capacities. The list is the JAX
+        System's warmup (``send_slam_tpu/models/system.py:729-805``),
+        which compiles the same programs; unlike it, the steps after the
+        init run on a dummy map with a finite baseline (below).
+
+        Call it on a fresh System: it ends in ``reset()`` (the RANSAC
+        generator reseeded) with ``frames_extracted`` and the counters
+        that survive a reset restored, so a warmed session's poses are
+        bit-equal to an unwarmed one's. Unlike the JAX warmup it is
+        synchronous: ``block`` is accepted and changes nothing, since
+        there is no background tail to wait for (``_tail_ready`` is
+        always open here). ``image_dtype`` is the dtype of the dummy
+        frame-step image, as in the JAX warmup."""
+        del block
+        kept = {a: copy.copy(getattr(self, a)) for a in self._SESSION_ATTRS}
+        cfg, dev = self.cfg, self.device
+        cam = cfg.camera
+        rng = np.random.default_rng(0)
+        img_f = rng.uniform(0, 255, (cam.height, cam.width)).astype(
+            np.float32)
+        img_raw = rng.integers(0, 255, (cam.height, cam.width)).astype(
+            image_dtype)
+        frame = self._make_frame(img_f, 0.0)
+        refs = _stack_frames([frame] * self._n_init_refs)
+        res_m, _probes = self._init_multi(refs, frame, 1.0)
+        # Two identical dummy views have no baseline: the two-view
+        # result's t and points are not finite (the JAX warmup carries
+        # the NaNs on; here a solver on the CPU would refuse them). The
+        # map the later steps run on gets a finite one instead: a 0.1
+        # baseline along x, every match kept, points 2-6 ahead.
+        N = frame.feat.capacity
+        pts = rng.uniform((-1.0, -1.0, 2.0), (1.0, 1.0, 6.0), (N, 3))
+        every = torch.ones(N, dtype=torch.bool, device=dev)
+        init_res = _index_result(res_m, 0)._replace(
+            t=torch.tensor([-0.1, 0.0, 0.0], device=dev),
+            points=torch.from_numpy(pts.astype(np.float32)).to(dev),
+            point_ok=every, matches=Matches(
+                idx=torch.arange(N, device=dev),
+                dist=torch.zeros(N, device=dev), valid=every))
+        m = self._bootstrap_map(self.map, frame, frame, init_res)
+        self._backfill_step(m, init_res.R, init_res.t,
+                            torch.zeros(self._n_backfill, device=dev),
+                            [frame] * self._n_backfill)
+        st = self._fresh_loop_state()
+        m2, _st2, summary = self._frame_step(m, st, img_raw, 1.0)
+        self._maintain_step(m2)
+        _mw, dR, dt, big = self._wide_slice(m, 1e-3, False)
+        self._young_slice(m, 1e-3, False)
+        self._rebase_st_cond(st, dR, dt, big)
+        self._global_slice(m, 1e-3, False)
+        self._forced_cull_step(m)
+        self._compact_step(m)
+        self._covis_window(m)
+        cands, _scores = self._loop_candidate(m, 1)
+        loop, cand_sel = self._loop_sim3(m, 1, cands, self._loop_noise(m))
+        self._loop_apply(m, 1, cand_sel, loop)
+        self._reloc_step(m, frame)
+        self._atlas_cand(m, m.kf_signature[0])
+        aw = self._atlas_sim3(m, m, 0, 0, self._atlas_noise(m))
+        self._atlas_weld(m, m, aw.sim3.s, aw.sim3.R, aw.sim3.t)
+        summary.cpu()               # the device->host read path, and a sync
+        self.reset()
+        for a, v in kept.items():
+            setattr(self, a, v)
+
+    def get_tracking_state(self) -> int:
+        return self.state
 
     def reset(self) -> None:
         cfg = self.cfg

@@ -1,5 +1,6 @@
 """The port and chip_smoke.py import nothing of JAX or the JAX package,
-and the port never falls back to the CPU on its own."""
+nor ``msgpack``, ``aiohttp`` or ``cv2`` (the card's machine has none of
+them), and the port never falls back to the CPU on its own."""
 
 import os
 import subprocess
@@ -14,7 +15,8 @@ _CHILD = textwrap.dedent("""
     import importlib, pkgutil, sys
     import numpy as np
 
-    BLOCKED = ("jax", "jaxlib", "send_slam_tpu")
+    BLOCKED = ("jax", "jaxlib", "send_slam_tpu", "msgpack", "aiohttp",
+               "cv2")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -28,7 +30,17 @@ _CHILD = textwrap.dedent("""
     mods = [m.name for m in pkgutil.walk_packages(
         send_slam_tpu_torch.__path__, "send_slam_tpu_torch.")]
     for name in ("send_slam_tpu_torch.models.atlas",
-                 "send_slam_tpu_torch.io.map_io"):
+                 "send_slam_tpu_torch.io.map_io",
+                 "send_slam_tpu_torch.io.msgpack_codec",
+                 "send_slam_tpu_torch.io.protocol",
+                 "send_slam_tpu_torch.io.native",
+                 "send_slam_tpu_torch.io.ppm",
+                 "send_slam_tpu_torch.utils.profiling",
+                 "send_slam_tpu_torch.calib.io",
+                 *("send_slam_tpu_torch.server." + m for m in (
+                     "app", "backend_client", "bus", "engine_worker",
+                     "http", "pose_server", "process_manager", "producers",
+                     "tcp", "web"))):
         assert name in mods, name
     for name in mods:
         importlib.import_module(name)
@@ -42,6 +54,10 @@ _CHILD = textwrap.dedent("""
                    CameraConfig(width=128, height=96, fx=100.0, fy=100.0,
                                 cx=64.0, cy=48.0), device="cpu")
     assert f.feat.uv.shape == (64, 2) and f.feat.desc.shape == (64, 8)
+    from send_slam_tpu_torch.io import protocol
+    pkt = protocol.build_frame_packet(0, 1.5, 2, 1, b"P6 2 1 255 " + bytes(6))
+    raw = protocol.frame_packet_bytes(pkt)
+    assert protocol.PacketDecoder().feed(raw) == [pkt]
     bad = sorted(m for m in sys.modules
                  if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not bad, bad
@@ -67,6 +83,54 @@ def test_system_without_card_raises():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         System(EngineConfig())
+
+
+def test_server_entry_points_without_card_raise():
+    """BackendClient, EngineWorker and Application run the engine on the
+    card unless given device="cpu", and raise without one."""
+    import torch
+    from send_slam_tpu_torch.config import EngineConfig
+    from send_slam_tpu_torch.server.app import Application
+    from send_slam_tpu_torch.server.backend_client import BackendClient
+    from send_slam_tpu_torch.server.bus import Bus
+    from send_slam_tpu_torch.server.engine_worker import EngineWorker
+    cfg = EngineConfig()
+    made = [lambda **kw: BackendClient("127.0.0.1", 5000, **kw),
+            lambda **kw: EngineWorker(Bus(), cfg, **kw),
+            lambda **kw: Application(config=cfg, **kw)]
+    cpu = torch.device("cpu")
+    assert made[0](device="cpu").device == cpu
+    assert made[1](device="cpu").system.device == cpu
+    assert made[2](device="cpu").device == cpu
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    for make in made:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(device="cuda")
+
+
+def test_server_mains_default_to_the_card():
+    """``python -m`` of both entry points parses --device, default cuda,
+    and fails without a card before it binds or dials anything."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    for mod, args in (("send_slam_tpu_torch.server.backend_client",
+                       ["--port", "1"]),
+                      ("send_slam_tpu_torch.server.app", ["--no-engine"])):
+        proc = subprocess.run([sys.executable, "-m", mod, *args], cwd=ROOT,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0
+        assert "no CUDA device is available" in proc.stderr, proc.stderr
+        helped = subprocess.run([sys.executable, "-m", mod, "--help"],
+                                cwd=ROOT, env=env, capture_output=True,
+                                text=True, timeout=120)
+        assert helped.returncode == 0 and "--device" in helped.stdout
 
 
 def test_system_refuses_unported_features(tmp_path):
