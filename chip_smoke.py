@@ -12,13 +12,15 @@ Phases, each printing one JSON line:
 2. kernel_check: the FAST kernel held against its plain PyTorch version
    on the card under torch.equal (every level shape of a 640x480 frame,
    a ragged 100x128 and a 7x9 image, a batch of 3; thresholds 7 and 20;
-   raw and NMS maps), then one launch over the whole 8-level pyramid and
-   one over a batch of 8 such pyramids;
+   raw and NMS maps), then one launch over the whole 8-level pyramid,
+   one over a batch of 8 such pyramids, and each lanes path's own
+   launch at its batch, levels and data (phases 15 and 17);
 3. kernel_times: per 640x480 frame, one launch over the 8 levels (device
    time queued behind a spin kernel, and the unqueued launch interval),
    8 one-level launches of the same kernel (both times), the plain
-   version, the batch of 8 pyramids, and the bytes and operations
-   bounds (the operations counted on the timed inputs);
+   version, batches of 8 and of 2 pyramids (the kernel and the plain
+   version), and the bytes and operations bounds (the operations
+   counted on the timed inputs);
 4. frontend_check: make_frame on the card against make_frame on the CPU
    (the plain path) on one 640x480 frame;
 5. main_path: System.track_monocular at the flagship configuration
@@ -114,14 +116,42 @@ Phases, each printing one JSON line:
    of the card's culled map (every field equal); one global slice after
    the weld timed on the card alone; repeats of each on the card
    bit-equal;
+15. lanes_path: two camera lanes of ``parallel.multicam_slam_step`` at
+   the flagship configuration with loop closing on, lane 0 on the bench
+   arc's path at twice its pace, lane 1 on it shifted 0.35 m along +x,
+   one ring merge after step 70 and 10 steps more: both lanes commit
+   and are TRACKING at the end, each on at least half of the steps
+   after its commit; each lane's Sim(3)-aligned ATE; the merge ok on
+   both lanes with at least 5 imports whose median distance to the true
+   structure through the lane's gauge is at most 2 m; the merge's ms and
+   peak device memory; the FAST launches read around the run, one per
+   step, each over 2 lanes x 8 levels and each held against the plain
+   version after the run; ms per step and per lane-step;
+16. lanes_parity: the card's states before three of phase 15's steps go
+   to the CPU: the first init commit, the first keyframe insertion past
+   a bootstrap, and the first step both lanes track without a keyframe
+   after both lanes' first keyframe. Each step runs on both (modes,
+   counts, keyframe decisions and kf_total exact, inliers +-2, poses
+   1e-4, maps as phase 14's; the fields that a commit's or keyframe's
+   bundle adjustment writes at BA_TOL); both lanes' merges of the
+   pre-merge maps on both with the same Gumbel noise (verdict, imports
+   and import mask exact, s/R/t 1e-5); on the card the steps and the
+   merges repeat bit for bit (the merges equal phase 15's);
+17. lanes_ring: tests/test_parallel.py's merge scene, 8 lanes at
+   160x120 over 14 steps and the ring merge: every lane TRACKING, at
+   least 7 merges ok, one launch per step over 8 lanes x 3 levels, each
+   held against the plain version, and a same-seed rerun bit-equal in
+   its summaries, states and merged maps;
 
-The phases run in the order 1-5, 5a, 6, 5b, 7-14. Phases 12 and 13 run
-in a second process (``chip_smoke.py --sessions DIR``), started after
-phase 5b and running beside phases 7-11, so the times of phases 7-13
-are taken beside the other process (run ``--sessions DIR`` alone for
-phases 12 and 13 by themselves); their lines are printed after phase
-11's. Then the kernels summary line and, last, {"ok": true, "device":
-...}.
+The phases run in the order 1-5, 5a, 6, 5b, 7-17. Phases 12 and 13 run
+in a second process (``chip_smoke.py --sessions DIR``), phases 15 and
+16 in a third (``chip_smoke.py --lanes DIR``) and phase 17 in a fourth
+(``chip_smoke.py --ring DIR``), all started after phase 5b and running
+beside phases 7-11, so the times of phases 7-17 are taken beside the
+other processes (run ``--sessions DIR``, ``--lanes DIR`` or ``--ring
+DIR`` alone for their phases by themselves); their lines are printed
+after phase 11's and phase 14's. Then the kernels summary line and,
+last, {"ok": true, "device": ...}.
 Any failed check exits non-zero; a watchdog ends the run after 290 s.
 It imports nothing of JAX or of the JAX package, nor ``msgpack``,
 ``aiohttp`` or ``cv2``, which the card's machine lacks.
@@ -168,6 +198,30 @@ LONG_FRAMES, LONG_MK, LONG_MIN_OK = 140, 10, 100
 # the card), until APP_POSES live poses (not late backfill ones) came
 # over /client.
 APP_FRAMES, APP_FPS, APP_POSES = 60, 5.0, 12
+# The camera lanes (phases 15-17): two flagship lanes on the bench arc's
+# path at LANES_SPEED times its pace (at the bench's own pace the lanes
+# commit on a short baseline and drift, and the card, the port on the
+# CPU and the JAX package land in different basins), lane 1 shifted
+# LANES_SHIFT m along +x (the lane spacing of tests/test_parallel.py),
+# merged after LANES_MERGE_AFTER steps, then LANES_AFTER more; each
+# lane's merge must import LANES_MIN_IMPORTS landmarks
+# (tests/test_parallel.py's bar) whose median distance to the true
+# structure, through the lane's gauge, is at most LANES_MAX_IMPORT_DIST
+# m (the world's points lie 3-10 m deep). Then that test's 8 lanes at
+# 160x120 over RING_STEPS steps and the ring merge.
+LANES_SPEED, LANES_SHIFT, LANES_MERGE_AFTER, LANES_AFTER = 2.0, 0.35, 70, 10
+LANES_MIN_IMPORTS, LANES_MAX_IMPORT_DIST = 5, 2.0
+RING_LANES, RING_STEPS = 8, 14
+# lanes_parity's bar, card vs CPU, for the map fields that a commit's or
+# a keyframe's bundle adjustment writes: keyframe poses and landmark
+# positions at step_parity's bar for the polish slices' BA (1e-3), the
+# unit normals at the same, and the distance bounds, which are a
+# landmark's distance times up to 1.2^7 (the pyramid's scale at its last
+# level), at 1e-3 x 1.2^7.
+BA_TOL = dict(kf_R=1e-3, kf_t=1e-3, lm_pos=1e-3, lm_normal=1e-3,
+              lm_dist_min=1e-3 * 1.2 ** 7, lm_dist_max=1e-3 * 1.2 ** 7)
+LANES_THREADS = 3               # the lanes process's CPU threads
+RING_THREADS = 1                # the ring process's (its steps are host-bound)
 # Steps timed in the served replay of the main path (phase 6).
 REPLAY_TIMED = ("_backfill_step", "_wide_slice", "_young_slice")
 LOOP_PROGRAMS = ("_loop_candidate", "_loop_sim3", "_loop_apply",
@@ -365,8 +419,54 @@ def kernel_check(torch, fast_cuda, fast_ops, level_shapes):
             equal_or_fail(nms_1, fast_ops.nms3x3(ref),
                           f"lane {r} nms {h}x{w} vs plain")
     cases += 1
+    # Each lanes path's launch at its own batch, levels and data.
+    lanes_err = 0.0
+    for name, (levels, th) in lanes_launch_inputs(torch).items():
+        got = fast_cuda.fast_score_levels_cuda(levels, th, with_nms=True)
+        lanes_err = max(lanes_err, hold_launch(fast_ops, levels, th, got,
+                                               f"{name}'s launch"))
+        cases += 1
     torch.cuda.synchronize()
-    return dict(cases=cases, comparison="torch.equal", max_abs_err=max_err)
+    return dict(cases=cases, comparison="torch.equal", max_abs_err=max_err,
+                lanes_max_abs_err=lanes_err)
+
+
+def hold_launch(fast_ops, levels, th, got, what):
+    """A batched launch's (raw, nms) per level against the plain version
+    on each of its rows, bit for bit; the largest difference."""
+    err = 0.0
+    for lvl, (lv, (raw, nms)) in enumerate(zip(levels, got)):
+        for r in range(lv.shape[0]):
+            ref = fast_ops.fast_score_map(lv[r], th)
+            equal_or_fail(raw[r], ref, f"{what}, lane {r} level {lvl} raw")
+            equal_or_fail(nms[r], fast_ops.nms3x3(ref),
+                          f"{what}, lane {r} level {lvl} nms")
+            err = max(err, float((raw[r] - ref).abs().max()))
+    return err
+
+
+def lanes_launch_inputs(torch):
+    """The levels of one FAST launch of each lanes path, stacked as
+    extract_orb_batch stacks them: lanes_path's 2 flagship lanes (its
+    uint8 renders) at the merge step, and lanes_ring's 8 lanes at
+    160x120 (its float renders) half-way. {name: (levels, threshold)}."""
+    from send_slam_tpu_torch.ops.pyramid import build_pyramid
+    world, _, poses, _ = lanes_scene()
+    k = LANES_MERGE_AFTER
+    pair = np.stack([np.round(world.render(*poses[c][k])).astype(np.uint8)
+                     for c in range(2)]).astype(np.float32)
+    rworld, rcfg, centres = ring_scene()
+    ring = np.stack([rworld.render(np.eye(3), -centres[c][RING_STEPS // 2])
+                     for c in range(RING_LANES)]).astype(np.float32)
+    out = {}
+    for name, imgs, orb in (("lanes_path", pair, flagship_config().orb),
+                            ("lanes_ring", ring, rcfg.orb)):
+        pyrs = [build_pyramid(torch.from_numpy(im).cuda(), orb.n_levels,
+                              orb.scale_factor) for im in imgs]
+        out[name] = ([torch.stack([p[lvl] for p in pyrs])
+                      for lvl in range(orb.n_levels)],
+                     float(orb.min_th_fast))
+    return out
 
 
 def fast_work(torch, fast_ops, levels, th):
@@ -456,6 +556,20 @@ def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
         lanes, 7.0, with_nms=True), 20)
     batch_bound = fast_bound(*fast_work(torch, fast_ops, lanes, 7.0))
     bench_bound = fast_bound(*fast_work(torch, fast_ops, bench_pyr, 7.0))
+    # Two lanes (phase 15's launch) and the plain version on both batches.
+    pair = [lv[:2].contiguous() for lv in lanes]
+    hold_launch(fast_ops, pair, 7.0, fast_cuda.fast_score_levels_cuda(
+        pair, 7.0, with_nms=True), "the timed 2-lane launch")
+    pair_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
+        pair, 7.0, with_nms=True), 20)
+    pair_bound = fast_bound(*fast_work(torch, fast_ops, pair, 7.0))
+
+    def plain_levels(levels):
+        for lv in levels:
+            fast_ops.nms3x3(fast_ops.fast_score_map(lv, 7.0))
+
+    pair_plain_ms = cuda_ms(lambda: plain_levels(pair), 5, repeats=3)
+    batch_plain_ms = cuda_ms(lambda: plain_levels(lanes), 3, repeats=3)
     return dict(
         unit="per 640x480 frame: 8 pyramid levels, raw + NMS at th 7",
         tile=[fast_cuda.TILE_W, fast_cuda.TILE_H],
@@ -464,7 +578,10 @@ def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
         eight_launches_interval_ms=eight_launch_ms,
         plain_ms=plain_ms, **bound, old_ops_bound_ms=old_ops_bound_ms,
         bench_scene=dict(ms=bench_ms, **bench_bound),
-        batch=dict(lanes=8, levels=8, ms=batch_ms, **batch_bound))
+        batch=dict(lanes=8, levels=8, ms=batch_ms, plain_ms=batch_plain_ms,
+                   **batch_bound),
+        pair=dict(lanes=2, levels=8, ms=pair_ms, plain_ms=pair_plain_ms,
+                  **pair_bound))
 
 
 def frontend_check(torch, make_frame, cfg, img):
@@ -1315,24 +1432,48 @@ def sessions_main(outdir: str) -> int:
     return 0
 
 
-def join_sessions(torch, child, outdir):
-    """Wait for the sessions process, re-emit its lines, and return
-    (long_session's result, atlas_path's result, the kept inputs on the
-    card)."""
+def start_child(flag: str, outdir: str):
+    """``chip_smoke.py flag outdir`` in a process of its own, its output
+    to outdir/<name>.out and .err (name: the flag without dashes)."""
+    name = flag.strip("-")
+    with open(os.path.join(outdir, name + ".out"), "w") as out, \
+            open(os.path.join(outdir, name + ".err"), "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, outdir],
+            stdout=out, stderr=err)
+    _CHILDREN.append(child)
+    return child
+
+
+def join_child(child, outdir: str, name: str, what: str):
+    """Wait for a process of start_child, re-emit its lines, fail on its
+    exit code, and return its JSON lines by phase."""
+    t0 = time.perf_counter()
     rc = child.wait()
-    with open(os.path.join(outdir, "sessions.out")) as f:
+    print(f"chip_smoke: waited {time.perf_counter() - t0:.1f} s for {what}",
+          file=sys.stderr, flush=True)
+    with open(os.path.join(outdir, name + ".out")) as f:
         lines = [ln.strip() for ln in f if ln.strip()]
     for ln in lines:
         print(ln, flush=True)
     if rc != 0:
-        with open(os.path.join(outdir, "sessions.err")) as f:
+        with open(os.path.join(outdir, name + ".err")) as f:
             err = f.read()[-3000:]
-        fail(f"the long and atlas sessions exited with {rc}:\n{err}")
+        fail(f"{what} exited with {rc}:\n{err}")
     phases = {}
     for ln in lines:
         if ln.startswith("{"):
             obj = json.loads(ln)
             phases[obj.get("phase")] = obj
+    return phases
+
+
+def join_sessions(torch, child, outdir):
+    """Wait for the sessions process, re-emit its lines, and return
+    (long_session's result, atlas_path's result, the kept inputs on the
+    card)."""
+    phases = join_child(child, outdir, "sessions",
+                        "the long and atlas sessions")
     kept = _unpack(torch.load(os.path.join(outdir, "kept.pt"),
                               weights_only=True), "cuda")
     return phases["long_session"], phases["atlas_path"], kept
@@ -1342,7 +1483,11 @@ def _fields_close(a, b, rel):
     """Integer and boolean fields of two maps equal, float fields within
     ``rel`` of the field's largest magnitude. Returns (equal, worst)."""
     from send_slam_tpu_torch.models.map_state import map_to_numpy
-    a, b = map_to_numpy(a), map_to_numpy(b)
+    return _np_fields_close(map_to_numpy(a), map_to_numpy(b), rel)
+
+
+def _np_fields_close(a, b, rel):
+    """_fields_close on two dicts of numpy arrays."""
     same, worst = True, 0.0
     for f in a:
         if a[f].dtype != b[f].dtype or a[f].shape != b[f].shape:
@@ -1477,6 +1622,563 @@ def long_parity(torch, System, kept, cfg):
         fail("the forced cull of the 256-slot map culled "
              f"{res['table_256']['culled']} keyframes, not 1")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Camera lanes (phases 15-17), in a process of their own
+
+CARD = "cuda"       # where the lanes run (phase 16 holds it against "cpu")
+
+
+def lanes_scene(shift=LANES_SHIFT, n_frames=N_FRAMES, speed=LANES_SPEED):
+    """The bench world (seed 11) and the bench arc's path
+    (utils/synth.py trajectory) at ``speed`` times its pace, the arc
+    parameter running from 0 to ``speed`` over the ``n_frames`` frames,
+    for lane 0; lane 1 runs the same path shifted ``shift`` m along +x.
+    Returns (world, ts, poses[lane][k] = (R, t) camera-from-world,
+    centres (2, n, 3))."""
+    from scipy.spatial.transform import Rotation
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+    world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
+                           fy=520.0, seed=11)
+    poses = [[], []]
+    for k in range(n_frames):
+        a = speed * k / (n_frames - 1)
+        c = np.array([1.6 * a, 0.15 * np.sin(2 * np.pi * a), 0.3 * a])
+        R = Rotation.from_euler("y", -0.12 * a).as_matrix().T
+        for lane, off in enumerate((0.0, shift)):
+            poses[lane].append((R, -R @ (c + np.array([off, 0.0, 0.0]))))
+    centres = np.asarray([[-R.T @ t for R, t in lane] for lane in poses])
+    ts = np.arange(n_frames, dtype=np.float32) / np.float32(30.0)
+    return world, ts, poses, centres
+
+
+def ring_scene():
+    """tests/test_parallel.py's merge-consistency scene and configuration:
+    8 lanes at 160x120 (256 features, 3 levels, an 8-slot table of 1024
+    landmarks), each lane at its own offset, panning and rising."""
+    from send_slam_tpu_torch.config import (
+        CameraConfig, EngineConfig, MapConfig, OrbConfig, TrackingConfig,
+    )
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+    world = SyntheticWorld(n_points=700, width=160, height=120, fx=130.0,
+                           fy=130.0)
+    cfg = EngineConfig(
+        orb=OrbConfig(n_features=256, n_levels=3),
+        camera=CameraConfig(width=160, height=120, fx=130.0, fy=130.0,
+                            cx=80.0, cy=60.0),
+        map=MapConfig(max_keyframes=8, max_landmarks=1024, ba_window=4),
+        tracking=TrackingConfig(init_min_matches=30, kf_max_interval=3))
+    centres = np.asarray([[[0.35 * c - 1.2 + 0.12 * s, 0.05 * np.sin(0.7 * s),
+                            0.05 * s] for s in range(RING_STEPS)]
+                          for c in range(RING_LANES)])
+    return world, cfg, centres
+
+
+def lane_ates(rows, ts, centres):
+    """Per lane: the Sim(3)-aligned ATE of its streamed positions on the
+    steps it was TRACKING, and that alignment (s, R, t), the lane's
+    gauge; (inf, None) with fewer than 3 such steps."""
+    from send_slam_tpu_torch.io.evaluate import ate_rmse, umeyama_alignment
+    from send_slam_tpu_torch.parallel.multicam import MODE_TRACKING
+    out = []
+    for c in range(rows.shape[1]):
+        ok = np.flatnonzero(rows[:, c, 0] == MODE_TRACKING)
+        if len(ok) < 3:
+            out.append((float("inf"), None))
+            continue
+        est = rows[ok, c, 4:7].astype(np.float64)
+        n = len(rows)
+        out.append((ate_rmse(ts[ok], est, ts[:n], centres[c][:n]),
+                    umeyama_alignment(est, centres[c][ok], with_scale=True)))
+    return out
+
+
+def import_structure(pre_valid, post_valid, post_pos, gauge,
+                     world_points):
+    """(landmarks a merge imported into a lane, given the lane's
+    landmark validity before and after it and its positions after, as
+    numpy; the median distance of those, mapped through the lane's
+    gauge, to the nearest true world point, None without a gauge or
+    imports)."""
+    imported = post_valid & ~pre_valid
+    if gauge is None or not imported.any():
+        return int(imported.sum()), None
+    s, R, t = gauge
+    X = post_pos[imported].astype(np.float64)
+    W = (s * (R @ X.T)).T + t
+    d = np.sqrt(((W[:, None, :] - world_points[None]) ** 2).sum(-1)).min(1)
+    return int(imported.sum()), float(np.median(d))
+
+
+def run_lanes(torch, step, state, images, steps, after=None):
+    """Drive ``step`` over ``steps`` (``images(k)`` -> (imgs, tss)), each
+    step ending in a device sync. ``after(k, before, summary)`` sees the
+    state before each step and the step's summary. Returns (state, the
+    summaries (n, lanes, 10) on the host, ms per step)."""
+    rows, ms = [], []
+    for k in steps:
+        imgs, tss = images(k)
+        t0 = time.perf_counter()
+        before = state
+        state, summary = step(state, imgs, tss)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(summary.cpu().numpy())
+        if after is not None:
+            after(k, before, rows[-1])
+    return state, np.asarray(rows), ms
+
+
+@contextlib.contextmanager
+def launch_record(fast_cuda):
+    """Record each FAST launch made inside the block as (levels,
+    threshold, outputs); the tensors are held, not copied (nothing
+    writes into a launch's inputs or outputs). The launch counter is the
+    wrapper's own."""
+    real = fast_cuda.fast_score_levels_cuda
+    launches = []
+
+    def spy(levels, threshold, with_nms=False):
+        levels = list(levels)
+        out = real(levels, threshold, with_nms)
+        if not with_nms or levels[0].dim() != 3:
+            fail("a lanes launch was not a batched launch with NMS")
+        launches.append((levels, threshold, out))
+        return out
+
+    fast_cuda.fast_score_levels_cuda = spy
+    try:
+        yield launches
+    finally:
+        fast_cuda.fast_score_levels_cuda = real
+
+
+def launch_shapes(launches):
+    """The distinct (lanes, levels) of recorded launches."""
+    return sorted({(levels[0].shape[0], len(levels))
+                   for levels, _, _ in launches})
+
+
+def hold_launches(fast_ops, launches, what):
+    """Every recorded launch against the plain version, bit for bit
+    (hold_launch), then dropped. Returns (launches held, the largest
+    difference)."""
+    err = 0.0
+    for i, (levels, th, out) in enumerate(launches):
+        err = max(err, hold_launch(fast_ops, levels, th, out,
+                                   f"{what}'s launch {i}"))
+    n = len(launches)
+    launches.clear()
+    return n, err
+
+
+def timed_merge(torch, merge, maps, noises):
+    """One ring merge on the card: (maps', ok, n_imported, ms, peak
+    device bytes above what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    merged, ok, n_imp = merge(maps, noises)
+    torch.cuda.synchronize()
+    return (merged, ok, n_imp, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def lanes_path(torch, fast_cuda):
+    """Phase 15: two flagship lanes on the bench world with loop closing,
+    one ring merge after LANES_MERGE_AFTER steps, LANES_AFTER more steps
+    on the merged maps; the FAST launches counted around the run, and
+    each held against the plain version after it."""
+    from send_slam_tpu_torch.ops import fast as fast_ops
+    from send_slam_tpu_torch.parallel import (
+        init_multicam, make_mesh, multicam_slam_step,
+    )
+    from send_slam_tpu_torch.parallel.map_merge import (
+        merge_noise, multicam_merge_step,
+    )
+    from send_slam_tpu_torch.parallel.multicam import MODE_TRACKING
+    cfg = flagship_config()
+    world, ts, poses, centres = lanes_scene()
+    mesh = make_mesh(1)
+
+    def images(k):
+        imgs = np.stack([np.round(world.render(*poses[c][k])).astype(np.uint8)
+                         for c in range(2)])
+        return imgs, np.full(2, ts[k], np.float32)
+
+    step = multicam_slam_step(cfg, mesh, loop_closing=True)
+    carried, last = {}, {}
+
+    def carry(k, before, row):
+        # lanes_parity's carried states, each the state before a step:
+        # the first in which a lane commits its init ("commit"), the
+        # first in which a lane tracking past its bootstrap inserts a
+        # keyframe ("keyframe"), and the first that both lanes track
+        # without a keyframe after both lanes' first keyframe past the
+        # bootstrap ("tracked").
+        prev = last.get("row")
+        last["row"] = row
+        if prev is None:
+            return
+        trk, was = row[:, 0] == MODE_TRACKING, prev[:, 0] == MODE_TRACKING
+        new_kf = row[:, 8] > prev[:, 8]
+        if (trk & ~was).any():
+            carried.setdefault("commit", (k, before))
+        if (trk & was & new_kf & (prev[:, 8] >= 2)).any():
+            carried.setdefault("keyframe", (k, before))
+        if trk.all() and (prev[:, 8] >= 3).all() and not new_kf.any():
+            carried.setdefault("tracked", (k, before))
+
+    t_phase = time.perf_counter()
+    fast_cuda.launches = 0
+    with launch_record(fast_cuda) as recorded:
+        state = init_multicam(cfg, 2, device=CARD, seed=0)
+        state, rows_a, ms_a = run_lanes(torch, step, state, images,
+                                        range(LANES_MERGE_AFTER),
+                                        after=carry)
+        pre = state.maps
+        noises = merge_noise(2, cfg.map.max_landmarks, seed=15)
+        merged, ok, n_imp, merge_ms, merge_peak = timed_merge(
+            torch, multicam_merge_step(cfg, mesh), pre, noises)
+        state, rows_b, ms_b = run_lanes(
+            torch, step, state._replace(maps=merged), images,
+            range(LANES_MERGE_AFTER, LANES_MERGE_AFTER + LANES_AFTER))
+    launches = fast_cuda.launches
+    shapes = launch_shapes(recorded)
+    held, held_err = hold_launches(fast_ops, recorded, "lanes_path")
+    rows = np.concatenate([rows_a, rows_b])
+    n_steps = len(rows)
+    ates = lane_ates(rows, ts, centres)
+    commits, ok_share, imports = [], [], []
+    for c in range(2):
+        tracked = rows[:, c, 0] == MODE_TRACKING
+        first = int(np.argmax(tracked)) if tracked.any() else None
+        commits.append(first)
+        ok_share.append(float(tracked[first:].mean()) if first is not None
+                        else 0.0)
+        imports.append(import_structure(
+            pre.lm_valid[c].cpu().numpy(), merged.lm_valid[c].cpu().numpy(),
+            merged.lm_pos[c].cpu().numpy(), ates[c][1], world.points))
+    ms = ms_a + ms_b
+    res = dict(
+        phase="lanes_path", lanes=2,
+        config="flagship EngineConfig, loop closing on; lane 0 the bench "
+               f"arc's path at {LANES_SPEED}x its pace, lane 1 the same "
+               f"shifted {LANES_SHIFT} m along +x",
+        steps=n_steps, merge_after=LANES_MERGE_AFTER,
+        commit_steps=commits, tracking_share_after_commit=ok_share,
+        final_modes=rows[-1, :, 0].astype(int).tolist(),
+        modes_by_step=["".join(str(int(x)) for x in rows[:, c, 0])
+                       for c in range(2)],
+        kf_total=rows[-1, :, 8].astype(int).tolist(),
+        n_kf=rows[-1, :, 2].astype(int).tolist(),
+        landmarks=rows[-1, :, 3].astype(int).tolist(),
+        loops=rows[-1, :, 9].astype(int).tolist(),
+        ate_m=[a for a, _ in ates],
+        ate_before_merge_m=[a for a, _ in lane_ates(rows_a, ts, centres)],
+        merge=dict(ok=ok.cpu().tolist(), imported=n_imp.cpu().tolist(),
+                   import_median_to_structure_m=[m for _, m in imports],
+                   ms=merge_ms, peak_device_bytes=merge_peak),
+        fast_launches=launches, launch_shapes=shapes,
+        launches_held_against_plain=held, held_max_abs_err=held_err,
+        median_ms_per_step=statistics.median(ms),
+        median_ms_per_lane_step=statistics.median(ms) / 2,
+        mean_ms_per_step=statistics.fmean(ms),
+        median_ms_per_step_after_merge=statistics.median(ms_b),
+        parity_steps={n: k for n, (k, _) in carried.items()},
+        seconds=time.perf_counter() - t_phase)
+    emit(res)
+    for c in range(2):
+        if commits[c] is None:
+            fail(f"lanes_path: lane {c} never committed an init")
+        if ok_share[c] < 0.5:
+            fail(f"lanes_path: lane {c} tracked {ok_share[c]:.2f} of the "
+                 "steps after its commit (< 0.5)")
+        if not np.isfinite(ates[c][0]):
+            fail(f"lanes_path: lane {c} has no finite ATE")
+    if (rows[-1, :, 0] != MODE_TRACKING).any():
+        fail(f"lanes_path: lanes not all TRACKING at the end: "
+             f"{res['final_modes']}")
+    if not bool(ok.all()) or int(n_imp.min()) < LANES_MIN_IMPORTS:
+        fail(f"lanes_path: merge ok {res['merge']['ok']}, imports "
+             f"{res['merge']['imported']} (each lane must merge with >= "
+             f"{LANES_MIN_IMPORTS} imports)")
+    dist = res["merge"]["import_median_to_structure_m"]
+    if any(d is None or not d <= LANES_MAX_IMPORT_DIST for d in dist):
+        fail(f"lanes_path: the imports lie {dist} m from the true "
+             f"structure through each lane's gauge (median; the bar is "
+             f"{LANES_MAX_IMPORT_DIST} m)")
+    if launches != n_steps or held != n_steps \
+            or shapes != [(2, cfg.orb.n_levels)]:
+        fail(f"lanes_path: {launches} FAST launches ({held} held against "
+             f"the plain version) of (lanes, levels) {shapes} for "
+             f"{n_steps} steps (expected one per step over 2 lanes x "
+             f"{cfg.orb.n_levels} levels)")
+    missing = {"commit", "keyframe", "tracked"} - set(carried)
+    if missing:
+        fail(f"lanes_path: no {sorted(missing)} step to carry to "
+             "lanes_parity")
+    return res, dict(cfg=cfg, mesh=mesh, pre=pre, merged=merged,
+                     noises=noises, ok=ok, n_imp=n_imp, steps={
+                         n: dict(step=k, state=st, inputs=images(k),
+                                 row_before=rows[k - 1])
+                         for n, (k, st) in carried.items()})
+
+
+def _lane_state_to(state, dev):
+    """A MultiCamState with every tensor on ``dev`` (the generator
+    states stay on the CPU)."""
+    from send_slam_tpu_torch.models.map_state import MapState
+    return state._replace(
+        maps=MapState(**{f.name: getattr(state.maps, f.name).to(dev)
+                         for f in dataclasses.fields(MapState)}),
+        **{f: getattr(state, f).to(dev) for f in state._fields
+           if f not in ("maps", "rng")})
+
+
+def lanes_parity(torch, kept):
+    """Phase 16: the lane step and the ring merge, card against CPU, on
+    lanes_path's carried states (an init commit, a keyframe insertion
+    and a tracked step) and pre-merge maps; and their repeats on the
+    card. The lanes' generators travel in the carried state, so both
+    sides take the same RANSAC draws; the merges take lanes_path's
+    noise."""
+    from send_slam_tpu_torch.parallel import make_mesh, multicam_slam_step
+    from send_slam_tpu_torch.parallel.map_merge import merge_from_partner
+    from send_slam_tpu_torch.parallel.multicam import (
+        MODE_TRACKING, lane_map, multicam_state_to_numpy,
+    )
+    t_phase = time.perf_counter()
+    cfg = kept["cfg"]
+    steps = dict(cuda=multicam_slam_step(cfg, kept["mesh"],
+                                         loop_closing=True),
+                 cpu=multicam_slam_step(cfg, make_mesh(1, devices=["cpu"]),
+                                        loop_closing=True))
+    checks, bits, step_rows = {}, {}, []
+    exact_cols = [0, 2, 3, 7, 8, 9]
+    for name, carried in kept["steps"].items():
+        imgs, tss = carried["inputs"]
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu", "repeat"):
+            t0 = time.perf_counter()
+            st, summary = steps["cpu" if dev == "cpu" else CARD](
+                _lane_state_to(carried["state"],
+                               "cpu" if dev == "cpu" else CARD),
+                imgs, tss)
+            secs[dev] = time.perf_counter() - t0
+            out[dev] = (multicam_state_to_numpy(st), summary.cpu().numpy())
+        (g, gs), (c, cs), (r, rs) = out["cuda"], out["cpu"], out["repeat"]
+        pose_err = max(_max_err(gs[:, 4:7], cs[:, 4:7]),
+                       _max_err(g["R"], c["R"]), _max_err(g["t"], c["t"]))
+        ints = [f for f, v in c.items()
+                if f != "maps" and v.dtype.kind != "f"]
+        map_same, map_rel = _np_fields_close(g["maps"], c["maps"], 1e-6)
+        ba_err = {}
+        if name != "tracked":
+            # The commit's and the keyframe's bundle adjustment: its
+            # outputs, and the landmark statistics computed from them, at
+            # BA_TOL (absolute); every other field as the tracked step's.
+            ba_err = {f: _max_err(g["maps"][f], c["maps"][f])
+                      for f in BA_TOL}
+            rest = [f for f in c["maps"] if f not in BA_TOL]
+            map_same, map_rel = _np_fields_close(
+                {f: g["maps"][f] for f in rest},
+                {f: c["maps"][f] for f in rest}, 1e-6)
+            map_same &= all(ba_err[f] <= BA_TOL[f] for f in BA_TOL)
+        checks[name] = dict(
+            summary_exact=bool(np.array_equal(gs[:, exact_cols],
+                                              cs[:, exact_cols])),
+            inliers_pm2=bool(np.abs(gs[:, 1] - cs[:, 1]).max() <= 2),
+            poses_1e_4=pose_err <= 1e-4,
+            lane_integers=all(np.array_equal(g[f], c[f]) for f in ints),
+            maps=map_same)
+        bits[name] = bool(np.array_equal(gs, rs)) and all(
+            np.array_equal(g[f], r[f]) for f in g if f != "maps") and all(
+            np.array_equal(g["maps"][f], r["maps"][f]) for f in g["maps"])
+        before = carried["row_before"]
+        step_rows.append(dict(
+            carried=name, step=carried["step"], pose_err=pose_err,
+            map_float_rel_err=map_rel,
+            ba_fields_abs_err=ba_err,
+            committed=((cs[:, 0] == MODE_TRACKING)
+                       & (before[:, 0] != MODE_TRACKING)).tolist(),
+            kf_inserted=(cs[:, 8] > before[:, 8]).tolist(),
+            loops=cs[:, 9].astype(int).tolist(),
+            cpu_step_s=secs["cpu"], card_step_s=secs["cuda"]))
+
+    # The merge, lane by lane as the ring runs it: on the card (equal to
+    # lanes_path's merged lane bit for bit) and on the CPU.
+    tr = cfg.tracking
+    pre, merged = kept["pre"], kept["merged"]
+    merge_rows = []
+    t_cpu = 0.0
+    for k in range(2):
+        j = (k + 1) % 2
+        res = {}
+        for dev in (CARD, "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = merge_from_partner(
+                lane_map(pre, k, dev), pre.lm_pos[j].to(dev),
+                pre.lm_desc[j].to(dev), pre.lm_valid[j].to(dev),
+                kept["noises"][k], tr, with_sim3=True)
+            if dev == "cpu":
+                t_cpu += time.perf_counter() - t0
+        mg, okg, ng, sg = res[CARD]
+        mc, okc, nc, sc = res["cpu"]
+        new_g = (mg.lm_valid & ~pre.lm_valid[k]).cpu()
+        new_c = mc.lm_valid & ~pre.lm_valid[k].cpu()
+        srt = max(_max_err(getattr(sg, f).cpu(), getattr(sc, f))
+                  for f in ("s", "R", "t"))
+        merge_rows.append(dict(
+            lane=k, ok=bool(okc), imported=int(nc), srt_err=srt,
+            s=float(sc.s), sim3_inliers=int(sc.n_inliers),
+            imported_pos_err=_max_err(mg.lm_pos.cpu()[new_c],
+                                      mc.lm_pos[new_c])
+            if bool(new_c.equal(new_g)) and int(nc) else 0.0,
+            cpu_equal=bool(okg.cpu() == okc) and int(ng) == int(nc)
+            and bool(new_g.equal(new_c)) and srt <= 1e-5,
+            card_repeat_equal=_maps_equal(mg, lane_map(merged, k))
+            and bool(okg == kept["ok"][k]) and bool(ng == kept["n_imp"][k])))
+    checks["merge"] = dict(cpu_equal=all(m["cpu_equal"]
+                                         for m in merge_rows))
+    bits["merge"] = all(m["card_repeat_equal"] for m in merge_rows)
+    res = dict(
+        phase="lanes_parity",
+        tolerances=dict(step_integers="exact", inliers=2, poses=1e-4,
+                        map_floats_rel=1e-6, ba_fields_abs=BA_TOL,
+                        merge="ok, imports and the import mask exact, "
+                        "s/R/t 1e-5"),
+        checks=checks, repeat_bit_equal=bits, steps=step_rows,
+        merge=merge_rows, cpu_merge_s=t_cpu,
+        seconds=time.perf_counter() - t_phase)
+    emit(res)
+    bad = [f"{k}.{c}" for k, v in checks.items() for c, ok in v.items()
+           if not ok]
+    if bad:
+        fail(f"lanes_parity: card vs CPU differ beyond tolerance in {bad}")
+    bad = [k for k, v in bits.items() if not v]
+    if bad:
+        fail(f"lanes_parity: repeats on the card not bit-equal: {bad}")
+    return res
+
+
+def lanes_ring(torch, fast_cuda):
+    """Phase 17: 8 lanes on tests/test_parallel.py's merge scene, then
+    the ring merge; the same-seed rerun must be bit-equal. Every FAST
+    launch is held against the plain version after its run."""
+    from send_slam_tpu_torch.models.map_state import map_to_numpy
+    from send_slam_tpu_torch.ops import fast as fast_ops
+    from send_slam_tpu_torch.parallel import (
+        init_multicam, make_mesh, multicam_slam_step,
+    )
+    from send_slam_tpu_torch.parallel.map_merge import (
+        merge_noise, multicam_merge_step,
+    )
+    from send_slam_tpu_torch.parallel.multicam import (
+        MODE_TRACKING, multicam_state_to_numpy,
+    )
+    world, cfg, centres = ring_scene()
+    ts = np.arange(RING_STEPS, dtype=np.float32) / 30.0
+    mesh = make_mesh(1)
+    step = multicam_slam_step(cfg, mesh)
+    merge = multicam_merge_step(cfg, mesh)
+
+    rendered = [np.stack([world.render(np.eye(3), -centres[c][k])
+                          for c in range(RING_LANES)]).astype(np.float32)
+                for k in range(RING_STEPS)]
+
+    def images(k):
+        return rendered[k], np.full(RING_LANES, ts[k], np.float32)
+
+    t_phase = time.perf_counter()
+    runs = []
+    for _ in range(2):
+        fast_cuda.launches = 0
+        with launch_record(fast_cuda) as recorded:
+            state = init_multicam(cfg, RING_LANES, device=CARD, seed=0)
+            state, rows, ms = run_lanes(torch, step, state, images,
+                                        range(RING_STEPS))
+        launches = fast_cuda.launches
+        shapes = launch_shapes(recorded)
+        held, held_err = hold_launches(fast_ops, recorded, "lanes_ring")
+        merged, ok, n_imp, merge_ms, peak = timed_merge(
+            torch, merge, state.maps,
+            merge_noise(RING_LANES, cfg.map.max_landmarks, seed=17))
+        runs.append(dict(state=state, rows=rows, ms=ms, launches=launches,
+                         shapes=shapes, held=held, held_err=held_err,
+                         merged=merged, ok=ok.cpu().numpy(),
+                         n_imp=n_imp.cpu().numpy(), merge_ms=merge_ms,
+                         peak=peak))
+    a, b = runs
+    sa, sb = multicam_state_to_numpy(a["state"]), \
+        multicam_state_to_numpy(b["state"])
+    ma, mb = map_to_numpy(a["merged"]), map_to_numpy(b["merged"])
+    replay = (np.array_equal(a["rows"], b["rows"])
+              and all(np.array_equal(sa[f], sb[f]) for f in sa if f != "maps")
+              and all(np.array_equal(sa["maps"][f], sb["maps"][f])
+                      for f in sa["maps"])
+              and all(np.array_equal(ma[f], mb[f]) for f in ma)
+              and np.array_equal(a["ok"], b["ok"])
+              and np.array_equal(a["n_imp"], b["n_imp"]))
+    ates = lane_ates(a["rows"], ts, centres)
+    imports = [import_structure(sa["maps"]["lm_valid"][c],
+                                ma["lm_valid"][c], ma["lm_pos"][c],
+                                ates[c][1], world.points)
+               for c in range(RING_LANES)]
+    ms = a["ms"] + b["ms"]
+    res = dict(
+        phase="lanes_ring", lanes=RING_LANES, steps=RING_STEPS,
+        final_modes=a["rows"][-1, :, 0].astype(int).tolist(),
+        kf_total=a["rows"][-1, :, 8].astype(int).tolist(),
+        ate_m=[x for x, _ in ates],
+        merge=dict(ok=a["ok"].tolist(), imported=a["n_imp"].tolist(),
+                   import_median_to_structure_m=[m for _, m in imports],
+                   ms=[a["merge_ms"], b["merge_ms"]],
+                   peak_device_bytes=a["peak"]),
+        fast_launches=[a["launches"], b["launches"]],
+        launch_shapes=a["shapes"],
+        launches_held_against_plain=[a["held"], b["held"]],
+        held_max_abs_err=max(a["held_err"], b["held_err"]),
+        replay_bit_equal=replay,
+        median_ms_per_step=statistics.median(ms),
+        median_ms_per_lane_step=statistics.median(ms) / RING_LANES,
+        seconds=time.perf_counter() - t_phase)
+    emit(res)
+    if (a["rows"][-1, :, 0] != MODE_TRACKING).any():
+        fail(f"lanes_ring: lanes not all TRACKING: {res['final_modes']}")
+    if int(a["ok"].sum()) < RING_LANES - 1:
+        fail(f"lanes_ring: {int(a['ok'].sum())} merges ok (< "
+             f"{RING_LANES - 1})")
+    if any(r[n] != RING_STEPS for r in runs for n in ("launches", "held")) \
+            or a["shapes"] != [(RING_LANES, cfg.orb.n_levels)]:
+        fail(f"lanes_ring: FAST launches {res['fast_launches']} of (lanes, "
+             f"levels) {a['shapes']} for {RING_STEPS} steps (expected one "
+             f"per step over {RING_LANES} lanes x {cfg.orb.n_levels} "
+             "levels)")
+    if not replay:
+        fail("lanes_ring: the same-seed rerun is not bit-equal")
+    return res
+
+
+def lanes_main(outdir: str, ring: bool) -> int:
+    """Phases 15 and 16, or with ``ring`` phase 17, in a process of
+    their own, which main() starts with the sessions process: their JSON
+    lines go to standard output."""
+    signal.signal(signal.SIGALRM, _watchdog)
+    signal.alarm(WATCHDOG_S)
+    import torch
+    torch.set_num_threads(RING_THREADS if ring else LANES_THREADS)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from send_slam_tpu_torch.ops import fast_cuda
+    fast_cuda.load()
+    if ring:
+        lanes_ring(torch, fast_cuda)
+    else:
+        _, kept = lanes_path(torch, fast_cuda)
+        lanes_parity(torch, kept)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2085,15 +2787,14 @@ def main() -> int:
     # --- 12 + 13 start: the long and atlas sessions in a second process,
     # beside phases 7-11 (their frames are host-bound, as the main
     # path's are, and the card has room for both).
+    # The two flagship lanes (15, 16) in a third process and the 8-lane
+    # ring (17) in a fourth, beside both.
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     atexit.register(shutil.rmtree, tmp, ignore_errors=True)
     atexit.register(_stop_children)       # a failed check exits early
-    with open(os.path.join(tmp, "sessions.out"), "w") as out, \
-            open(os.path.join(tmp, "sessions.err"), "w") as err:
-        child = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--sessions", tmp],
-            stdout=out, stderr=err)
-    _CHILDREN.append(child)
+    child = start_child("--sessions", tmp)
+    lanes_child = start_child("--lanes", tmp)
+    ring_child = start_child("--ring", tmp)
 
     # --- 7. the carried state of phase 5 held card vs CPU -----------------
     if len(snaps) < len(PARITY_FRAMES):
@@ -2118,6 +2819,10 @@ def main() -> int:
     ls, ap, kept = join_sessions(torch, child, tmp)
     long_parity(torch, System, kept, cfg)
 
+    # --- 15-17. the camera lanes, their parity and the 8-lane ring -------
+    lanes = join_child(lanes_child, tmp, "lanes", "the camera lanes")
+    lanes.update(join_child(ring_child, tmp, "ring", "the 8-lane ring"))
+
     emit({"kernels": [{
         "name": "fast_score", "route": "cuda",
         "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
@@ -2133,7 +2838,25 @@ def main() -> int:
         "ms": kt["ms"], "launch_interval_ms": kt["launch_interval_ms"],
         "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
-        "library_ms": None, "unit": kt["unit"]}]})
+        "library_ms": None, "unit": kt["unit"]}, {
+        "name": "fast_score_batched", "route": "cuda",
+        "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
+        "replaces": "send_slam_tpu/ops/pallas/fast_kernel.py:198",
+        "launches": lanes["lanes_path"]["fast_launches"],
+        "lanes_ring_launches": lanes["lanes_ring"]["fast_launches"],
+        "launches_held_against_plain": [
+            lanes["lanes_path"]["launches_held_against_plain"],
+            lanes["lanes_ring"]["launches_held_against_plain"]],
+        "max_abs_err": max(kc["lanes_max_abs_err"],
+                           lanes["lanes_path"]["held_max_abs_err"],
+                           lanes["lanes_ring"]["held_max_abs_err"]),
+        "ms": kt["pair"]["ms"], "plain_ms": kt["pair"]["plain_ms"],
+        "bound_ms": kt["pair"]["bound_ms"],
+        "bound_by": kt["pair"]["bound_by"], "library_ms": None,
+        "unit": "per step of 2 lanes: 2 x 8 pyramid levels of 640x480, "
+                "raw + NMS at th 7 (lanes_path's launch)",
+        "eight_lanes": {k: kt["batch"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}}]})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2144,4 +2867,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sessions":
         sys.exit(sessions_main(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in ("--lanes", "--ring"):
+        sys.exit(lanes_main(sys.argv[2], ring=sys.argv[1] == "--ring"))
     sys.exit(main())

@@ -34,6 +34,21 @@ with its frame, every cross-map Sim(3) verification (frame, verdict,
 matches, inliers), and the frames OK (tracking state 2) among the last
 10.
 
+``--scene lanes`` is chip_smoke.py's lanes_path: two lanes of
+``multicam_slam_step`` at that configuration with loop closing on, lane
+0 on the bench arc's path at twice its pace and lane 1 on the same path
+shifted 0.35 m along +x, one ring merge after step 70 and 10 more
+steps. It prints each lane's
+commit step, tracked share after it, kf_total, keyframes, landmarks,
+loops, Sim(3)-aligned ATE, and the merge's verdicts, imports and the
+imports' median distance to the true structure through the lane's
+gauge. The JAX package draws from jax.random keys (PRNGKey(0), split
+per step as tests/test_parallel.py does) and merges lane by lane
+(``merge_from_partner`` jitted once, to bound its memory); the port
+from its lanes' seeded generators and chip_smoke.py's merge draws, as
+on the card. Several minutes; the JAX merge at 16384 landmarks holds a
+few GB.
+
 The port draws its RANSAC samples from a CPU generator on every device,
 so ``--package torch`` here takes the same draws as the port's run on
 the card; ``--package jax`` is the reference at the same configuration.
@@ -57,11 +72,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "torch"), required=True)
-    ap.add_argument("--scene", choices=("bench", "laps", "long", "atlas"),
+    ap.add_argument("--scene", choices=("bench", "laps", "long", "atlas",
+                                        "lanes"),
                     default="bench")
     ap.add_argument("--frames", type=int, default=90)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
+    if args.scene == "lanes":
+        return lanes(args.package)
     if args.package == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -214,6 +232,108 @@ def main() -> int:
                  n_inliers=int(r.sim3.n_inliers)) for k, r in verifications],
         welds_done=s.welds_done, atlas_left=len(s.atlas),
         seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+def lanes(package: str) -> int:
+    """chip_smoke.py's lanes_path in ``package`` on the CPU."""
+    import chip_smoke as cs
+    world, ts, poses, centres = cs.lanes_scene()
+    n_steps = cs.LANES_MERGE_AFTER + cs.LANES_AFTER
+
+    def images(k):
+        return (np.stack([np.round(world.render(*poses[c][k]))
+                          .astype(np.uint8) for c in range(2)])
+                .astype(np.float32),
+                np.full(2, ts[k], np.float32))
+
+    t0 = time.perf_counter()
+    rows = []
+    if package == "jax":
+        import jax
+        import jax.numpy as jnp
+        jax.config.update("jax_platforms", "cpu")
+        from send_slam_tpu import config as C
+        from send_slam_tpu.parallel import (
+            init_multicam, make_mesh, multicam_slam_step,
+        )
+        from send_slam_tpu.parallel.map_merge import merge_from_partner
+        cfg = C.EngineConfig(camera=C.CameraConfig(
+            width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0))
+        step = multicam_slam_step(cfg, make_mesh(1, ("cam",)),
+                                  loop_closing=True)
+        merge_one = jax.jit(merge_from_partner, static_argnums=(5,))
+        state = init_multicam(cfg, 2)
+        key = jax.random.PRNGKey(0)
+        for k in range(n_steps):
+            if k == cs.LANES_MERGE_AFTER:
+                pre = {f: np.asarray(getattr(state.maps, f))
+                       for f in ("lm_valid", "lm_pos")}
+                key, sub = jax.random.split(key)
+                outs = [merge_one(
+                    jax.tree.map(lambda x: x[c], state.maps),
+                    state.maps.lm_pos[1 - c], state.maps.lm_desc[1 - c],
+                    state.maps.lm_valid[1 - c], kc, cfg.tracking)
+                    for c, kc in enumerate(jax.random.split(sub, 2))]
+                merged = jax.tree.map(lambda *x: jnp.stack(x),
+                                      *[o[0] for o in outs])
+                ok = [bool(o[1]) for o in outs]
+                n_imp = [int(o[2]) for o in outs]
+                state = state._replace(maps=merged)
+            imgs, tss = images(k)
+            key, sub = jax.random.split(key)
+            state, summary = step(state, jnp.asarray(imgs), jnp.asarray(tss),
+                                  jax.random.split(sub, 2))
+            rows.append(np.asarray(summary))
+        post = {f: np.asarray(getattr(merged, f))
+                for f in ("lm_valid", "lm_pos")}
+    else:
+        import torch
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+        from send_slam_tpu_torch.parallel import (
+            init_multicam, make_mesh, multicam_slam_step,
+        )
+        from send_slam_tpu_torch.parallel.map_merge import (
+            merge_noise, multicam_merge_step,
+        )
+        cfg = cs.flagship_config()
+        mesh = make_mesh(1, devices=["cpu"])
+        step = multicam_slam_step(cfg, mesh, loop_closing=True)
+        state = init_multicam(cfg, 2, device="cpu", seed=0)
+        for k in range(n_steps):
+            if k == cs.LANES_MERGE_AFTER:
+                pre = {f: getattr(state.maps, f).numpy()
+                       for f in ("lm_valid", "lm_pos")}
+                merged, ok_t, n_t = multicam_merge_step(cfg, mesh)(
+                    state.maps, merge_noise(2, cfg.map.max_landmarks,
+                                            seed=15))
+                ok, n_imp = ok_t.tolist(), n_t.tolist()
+                state = state._replace(maps=merged)
+            state, summary = step(state, *images(k))
+            rows.append(summary.numpy())
+        post = {f: getattr(merged, f).numpy()
+                for f in ("lm_valid", "lm_pos")}
+    rows = np.asarray(rows)
+    ates = cs.lane_ates(rows, ts, centres)
+    out = []
+    for c in range(2):
+        tracked = rows[:, c, 0] == 2
+        first = int(np.argmax(tracked)) if tracked.any() else None
+        n_imported, med = cs.import_structure(
+            pre["lm_valid"][c], post["lm_valid"][c], post["lm_pos"][c],
+            ates[c][1], world.points)
+        out.append(dict(
+            commit_step=first,
+            tracking_share_after_commit=(float(tracked[first:].mean())
+                                         if first is not None else 0.0),
+            kf_total=int(rows[-1, c, 8]), n_kf=int(rows[-1, c, 2]),
+            landmarks=int(rows[-1, c, 3]), loops=int(rows[-1, c, 9]),
+            final_mode=int(rows[-1, c, 0]), ate_m=ates[c][0],
+            merge_ok=ok[c], imported=n_imp[c],
+            import_median_to_structure_m=med))
+    print(json.dumps(dict(package=package, scene="lanes", steps=n_steps,
+                          merge_after=cs.LANES_MERGE_AFTER, lanes=out,
+                          seconds=time.perf_counter() - t0)), flush=True)
     return 0
 
 

@@ -6,16 +6,20 @@ epipolar-gated descriptor matching of unassociated keypoints, batched
 triangulation with octave-scaled gates, twin-landmark fusion through the
 new keyframe, and ``insert_keyframe_with_triangulation`` (cull, invert
 the tracked matches into the observation row, append, refresh, then
-triangulate against each reference in ``triangulate_backs`` in order).
+triangulate against each reference in ``triangulate_backs`` in order),
+and ``bootstrap_map``, the two-keyframe map that an init commit builds.
 """
 
 from __future__ import annotations
 
 import torch
 
-from send_slam_tpu_torch.config import TrackingConfig
+from send_slam_tpu_torch.config import EngineConfig, TrackingConfig
 from send_slam_tpu_torch.geometry.se3 import hat
 from send_slam_tpu_torch.geometry.triangulate import triangulate_batch
+from send_slam_tpu_torch.models.frame import Frame
+from send_slam_tpu_torch.models.initializer import InitResult
+from send_slam_tpu_torch.models.local_ba import local_bundle_adjustment
 from send_slam_tpu_torch.models.map_state import (
     MapState, add_landmarks, cull_landmarks, insert_keyframe,
     refresh_landmarks, set_rows,
@@ -193,3 +197,32 @@ def insert_keyframe_with_triangulation(
         n_new = n_new + n
     m, _ = fuse_duplicate_landmarks(m, kf_id, K, cfg)
     return m, kf_id, n_new
+
+
+def bootstrap_map(m: MapState, fa: Frame, fb: Frame, init_res: InitResult,
+                  K: torch.Tensor, cfg: EngineConfig) -> MapState:
+    """KF0 (identity, frame ``fa``) + KF1 (the init pose, frame ``fb``) +
+    the initial landmarks, then the post-init BA with KF0 fixed."""
+    orb = cfg.orb
+    N = fa.feat.capacity
+    dev = m.device
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    zero = torch.zeros(3, dtype=torch.float32, device=dev)
+    no_obs = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    m, kf0 = insert_keyframe(m, eye, zero, fa.timestamp, fa.uv_und,
+                             fa.feat.desc, fa.feat.octave, fa.feat.valid,
+                             no_obs)
+    m, kf1 = insert_keyframe(m, init_res.R, init_res.t, fb.timestamp,
+                             fb.uv_und, fb.feat.desc, fb.feat.octave,
+                             fb.feat.valid, no_obs)
+    good = init_res.point_ok & init_res.matches.valid
+    idx_b = torch.clamp(init_res.matches.idx, 0, N - 1)
+    X = init_res.points
+    dist = torch.clamp(torch.linalg.norm(X, dim=-1), min=1e-6)
+    dmax = dist * (orb.scale_factor ** fa.feat.octave.to(torch.float32))
+    dmin = dmax / (orb.scale_factor ** (orb.n_levels - 1))
+    m, _ = add_landmarks(
+        m, X, fa.feat.desc, good, kf0, kf0,
+        torch.arange(N, dtype=torch.int64, device=dev), kf1, idx_b,
+        normal=X / dist[:, None], dist_min=dmin, dist_max=dmax)
+    return local_bundle_adjustment(m, K, cfg.map, iters=10, n_fixed=1)

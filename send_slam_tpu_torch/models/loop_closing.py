@@ -35,6 +35,14 @@ from send_slam_tpu_torch.ops.orb import stable_topk
 N_HYP = 128     # RANSAC hypotheses per candidate (sim3_ransac's default)
 
 
+def loop_candidate(m: MapState, kf_id, min_gap: int = 20
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The best retrieval candidate for keyframe ``kf_id``, excluding
+    its temporal neighbours. Returns (cand_id () int32, score ())."""
+    cands, scores = loop_candidates(m, kf_id, min_gap, k=1)
+    return cands[0], scores[0]
+
+
 def loop_candidates(m: MapState, kf_id, min_gap: int = 20, k: int = 3
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k retrieval candidates for keyframe ``kf_id``, excluding its

@@ -65,15 +65,14 @@ from send_slam_tpu_torch.models.frame import Frame, make_frame
 from send_slam_tpu_torch.models.initializer import InitResult, two_view_init
 from send_slam_tpu_torch.models.local_ba import local_bundle_adjustment
 from send_slam_tpu_torch.models.local_mapping import (
-    insert_keyframe_with_triangulation,
+    bootstrap_map, insert_keyframe_with_triangulation,
 )
 from send_slam_tpu_torch.models.loop_closing import (
     N_HYP, apply_loop_correction, compute_loop_sim3_multi, loop_candidates,
     map_reprojection_median,
 )
 from send_slam_tpu_torch.models.map_state import (
-    MapState, add_landmarks, empty_map, insert_keyframe,
-    prune_zero_obs_landmarks, update_landmark_stats,
+    MapState, empty_map, prune_zero_obs_landmarks, update_landmark_stats,
 )
 from send_slam_tpu_torch.models.relocalize import relocalize
 from send_slam_tpu_torch.models.retrieval import (
@@ -424,32 +423,7 @@ class System:
 
     def _bootstrap_map(self, m: MapState, fa: Frame, fb: Frame,
                        init_res: InitResult) -> MapState:
-        """KF0 (identity) + KF1 (R, t) + the initial landmarks, then the
-        post-init BA with KF0 fixed."""
-        orb = self.cfg.orb
-        N = fa.feat.capacity
-        dev = self.device
-        eye = torch.eye(3, dtype=torch.float32, device=dev)
-        zero = torch.zeros(3, dtype=torch.float32, device=dev)
-        no_obs = torch.full((N,), -1, dtype=torch.int32, device=dev)
-        m, kf0 = insert_keyframe(m, eye, zero, fa.timestamp, fa.uv_und,
-                                 fa.feat.desc, fa.feat.octave, fa.feat.valid,
-                                 no_obs)
-        m, kf1 = insert_keyframe(m, init_res.R, init_res.t, fb.timestamp,
-                                 fb.uv_und, fb.feat.desc, fb.feat.octave,
-                                 fb.feat.valid, no_obs)
-        good = init_res.point_ok & init_res.matches.valid
-        idx_b = torch.clamp(init_res.matches.idx, 0, N - 1)
-        X = init_res.points
-        dist = torch.clamp(torch.linalg.norm(X, dim=-1), min=1e-6)
-        dmax = dist * (orb.scale_factor ** fa.feat.octave.to(torch.float32))
-        dmin = dmax / (orb.scale_factor ** (orb.n_levels - 1))
-        m, _ = add_landmarks(
-            m, X, fa.feat.desc, good, kf0, kf0,
-            torch.arange(N, dtype=torch.int64, device=dev), kf1, idx_b,
-            normal=X / dist[:, None], dist_min=dmin, dist_max=dmax)
-        return local_bundle_adjustment(m, self._K, self.cfg.map, iters=10,
-                                       n_fixed=1)
+        return bootstrap_map(m, fa, fb, init_res, self._K, self.cfg)
 
     def _backfill_step(self, m: MapState, R_cur, t_cur, alphas,
                        frames: List[Frame]) -> torch.Tensor:

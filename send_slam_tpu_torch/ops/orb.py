@@ -251,16 +251,38 @@ def brief_from_patches(patches: torch.Tensor,
 
 def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> FrameFeatures:
     """(H, W) float32 grayscale -> FrameFeatures of capacity
-    cfg.n_features. One FAST launch over every pyramid level returns
-    each level's raw score map (sub-pixel fit) and its 3x3 NMS
-    (selection)."""
-    levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
+    cfg.n_features: ``extract_orb_batch`` of a batch of one."""
+    return extract_orb_batch(img[None], cfg)[0]
+
+
+def extract_orb_batch(imgs: torch.Tensor,
+                      cfg: OrbConfig) -> List[FrameFeatures]:
+    """(B, H, W) float32 grayscale -> one FrameFeatures per image, each
+    the same bits whatever the batch. Each image's pyramid is built on
+    its own; one FAST launch over every level of every image (the batch
+    on the launch's second grid axis) returns each level's raw score
+    map (sub-pixel fit) and its 3x3 NMS (selection)."""
+    pyramids = [build_pyramid(img, cfg.n_levels, cfg.scale_factor)
+                for img in imgs]
+    stacked = [torch.stack([p[lvl] for p in pyramids])
+               for lvl in range(cfg.n_levels)]
+    scores = fast_score_levels(stacked, float(cfg.min_th_fast),
+                               with_nms=True)
+    return [features_from_scores(
+        pyr, [(raw[b], nms[b]) for raw, nms in scores], cfg)
+        for b, pyr in enumerate(pyramids)]
+
+
+def features_from_scores(levels: List[torch.Tensor], scores,
+                         cfg: OrbConfig) -> FrameFeatures:
+    """The rest of extract_orb_batch after FAST, for one image: per
+    level, the threshold and border masks, the grid top-k on the NMS
+    map, the blurred patches, the IC angle, rotated BRIEF and the
+    sub-pixel fit on the raw map.
+    ``scores`` holds a (raw, nms) pair per level."""
     budgets = cfg.per_level_features
     border = cfg.edge_threshold
-    dev = img.device
-    scores = fast_score_levels([lv.contiguous() for lv in levels],
-                               float(cfg.min_th_fast), with_nms=True)
-
+    dev = levels[0].device
     parts: List[FrameFeatures] = []
     for lvl, (level_img, n_lvl) in enumerate(zip(levels, budgets)):
         H, W = level_img.shape

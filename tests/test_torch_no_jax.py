@@ -37,6 +37,10 @@ _CHILD = textwrap.dedent("""
                  "send_slam_tpu_torch.io.ppm",
                  "send_slam_tpu_torch.utils.profiling",
                  "send_slam_tpu_torch.calib.io",
+                 "send_slam_tpu_torch.parallel",
+                 "send_slam_tpu_torch.parallel.mesh",
+                 "send_slam_tpu_torch.parallel.multicam",
+                 "send_slam_tpu_torch.parallel.map_merge",
                  *("send_slam_tpu_torch.server." + m for m in (
                      "app", "backend_client", "bus", "engine_worker",
                      "http", "pose_server", "process_manager", "producers",
