@@ -13,13 +13,16 @@ Phases, each printing one JSON line:
    on the card under torch.equal (every level shape of a 640x480 frame,
    a ragged 100x128 and a 7x9 image, a batch of 3; thresholds 7 and 20;
    raw and NMS maps), then one launch over the whole 8-level pyramid,
-   one over a batch of 8 such pyramids, and each lanes path's own
-   launch at its batch, levels and data (phases 15 and 17);
+   one over a batch of 8 such pyramids, each lanes path's own launch at
+   its batch, levels and data (phases 15 and 17), and one launch over
+   the 8-level pyramid of a textured frame at scales 1.3 and 1.5 (odd
+   level shapes: 369x492, 284x379, ... at 1.3);
 3. kernel_times: per 640x480 frame, one launch over the 8 levels (device
    time queued behind a spin kernel, and the unqueued launch interval),
    8 one-level launches of the same kernel (both times), the plain
    version, batches of 8 and of 2 pyramids (the kernel and the plain
-   version), and the bytes and operations bounds (the operations
+   version), scale_path's launch (8 levels at 1.3; the kernel and the
+   plain version), and the bytes and operations bounds (the operations
    counted on the timed inputs);
 4. frontend_check: make_frame on the card against make_frame on the CPU
    (the plain path) on one 640x480 frame;
@@ -66,7 +69,12 @@ Phases, each printing one JSON line:
    and _reloc_step on an earlier image with the same injected RANSAC
    draws; poses to 1e-4, inliers +-2, the keyframe decision, keyframe
    count, rebase flag and winning branch exactly, polished poses and
-   landmarks to 1e-3;
+   landmarks to 1e-3; and the main path's first init commit
+   (bootstrap_map: its BA of 10 iterations with one keyframe fixed) and
+   its first keyframe insertion with the local BA that follows it, from
+   their inputs kept during phase 5, card vs CPU: each field's error,
+   the fields of BA_TOL at it and every other field within 1e-6 of its
+   largest magnitude, integers exact;
 8. relocalization: the main run's System is fed featureless frames
    until it is LOST, then frames of mapped territory; it must be
    TRACKING_OK again within 5 frames (its Sim(3)-aligned position
@@ -142,19 +150,40 @@ Phases, each printing one JSON line:
    least 7 merges ok, one launch per step over 8 lanes x 3 levels, each
    held against the plain version, and a same-seed rerun bit-equal in
    its summaries, states and merged maps;
+17a. lanes_mixed_mesh: the same 8 lanes on a mesh of the card and the
+   CPU (four lanes on each, their slices moved to the CPU and back as a
+   two-card mesh moves them): each of phase 17's steps from that run's
+   state before it, held against its step at phase 16's bars (every
+   field back on the card), and the merge of its final maps (verdicts
+   and imports exact, floats 1e-5 relative);
+17b. calibration: tests/test_calibration.py's 12 board views at 640x480
+   (rendered without cv2) through detect_checkerboard and calibrate on
+   the card and on the CPU (corners 1e-3 px, K 1e-4 relative; fx and fy
+   within 2% of the truth), then GET /panel of an Application replaying
+   the boards as .ppm files: 10 binary JPEG frames read with this
+   script's WebSocket client and sent back as the calibrationFrames
+   upload must be answered "OK", write the calibration JSON (its
+   environment variable pointed at a temporary file) in the reference
+   layout and publish CALIBRATION once; detect, calibrate, JPEG encode
+   and decode ms, the panel's frames sent and skipped;
+13a. scale_path: phase 5's 90 frames at OrbConfig(scale_factor=1.3),
+   everything else flagship: one FAST launch per make_frame over the odd
+   level shapes, at least 30 of 90 tracked as bench.py counts them, ATE;
 
-The phases run in the order 1-5, 5a, 6, 5b, 7-17. Phases 12 and 13 run
-in a second process (``chip_smoke.py --sessions DIR``), phases 15 and
-16 in a third (``chip_smoke.py --lanes DIR``) and phase 17 in a fourth
-(``chip_smoke.py --ring DIR``), all started after phase 5b and running
+The phases run in the order 1-5, 5a, 6, 5b, 7-17. Phases 12, 13 and 13a
+run in a second process (``chip_smoke.py --sessions DIR``), phases 15
+and 16 in a third (``chip_smoke.py --lanes DIR``) and phases 17, 17a and
+17b in a fourth (``chip_smoke.py --ring DIR``), all started after phase
+5b and running
 beside phases 7-11, so the times of phases 7-17 are taken beside the
 other processes (run ``--sessions DIR``, ``--lanes DIR`` or ``--ring
 DIR`` alone for their phases by themselves); their lines are printed
 after phase 11's and phase 14's. Then the kernels summary line and,
 last, {"ok": true, "device": ...}.
-Any failed check exits non-zero; a watchdog ends the run after 290 s.
+Any failed check exits non-zero; a watchdog ends the run after 360 s.
 It imports nothing of JAX or of the JAX package, nor ``msgpack``,
-``aiohttp`` or ``cv2``, which the card's machine lacks.
+``aiohttp`` or ``cv2``; the port's JPEG codec imports ``PIL`` when it is
+called.
 """
 
 from __future__ import annotations
@@ -179,7 +208,7 @@ import time
 
 import numpy as np
 
-WATCHDOG_S = 290
+WATCHDOG_S = 360
 N_FRAMES = 90
 MIN_TRACKED = 30
 PARITY_FRAMES = (30, 55, 80)    # replay frames whose carried state is held
@@ -220,6 +249,25 @@ RING_LANES, RING_STEPS = 8, 14
 # level), at 1e-3 x 1.2^7.
 BA_TOL = dict(kf_R=1e-3, kf_t=1e-3, lm_pos=1e-3, lm_normal=1e-3,
               lm_dist_min=1e-3 * 1.2 ** 7, lm_dist_max=1e-3 * 1.2 ** 7)
+# The mixed mesh of lanes_ring (ROADMAP C.3): the same 8 lanes split over
+# the card and the CPU, four on each, as a two-card mesh splits them.
+MIXED_DEVICES = ("cuda", "cpu")
+# Other pyramid scales: scale_path's (the main path's frames at 1.3) and
+# kernel_check's odd level shapes (1.3 and 1.5).
+SCALE_PATH_SCALE = 1.3
+ODD_SCALES = (1.3, 1.5)
+# The calibration phase: tests/test_calibration.py's boards (a 9x6
+# inner-corner pattern of 25 mm squares) in CALIB_VIEWS views at 640x480
+# under its camera; card and CPU corners within CALIB_CORNER_TOL px, K
+# within CALIB_K_REL, fx and fy within CALIB_F_REL of the truth (that
+# test's bar); then PANEL_FRAMES JPEG frames of /panel sent back as the
+# calibration upload, the boards replayed at PANEL_FPS.
+CALIB_PATTERN, CALIB_SQUARE, CALIB_VIEWS = (9, 6), 25.0, 12
+CALIB_K = np.array([[520.0, 0.0, 322.0], [0.0, 515.0, 238.0],
+                    [0.0, 0.0, 1.0]])
+CALIB_DIST = np.array([0.08, -0.15, 0.001, -0.0005, 0.0])
+CALIB_CORNER_TOL, CALIB_K_REL, CALIB_F_REL = 1e-3, 1e-4, 0.02
+PANEL_FRAMES, PANEL_FPS = 10, 10.0
 LANES_THREADS = 3               # the lanes process's CPU threads
 RING_THREADS = 1                # the ring process's (its steps are host-bound)
 # Steps timed in the served replay of the main path (phase 6).
@@ -247,10 +295,16 @@ _CHILDREN = []                  # processes this run started
 
 
 def _stop_children():
-    for child in _CHILDREN:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+    """Kill every child still running, then reap each for at most 10 s
+    (a process killed inside a CUDA call may take a while to go)."""
+    running = [c for c in _CHILDREN if c.poll() is None]
+    for child in running:
+        child.kill()
+    for child in running:
+        try:
+            child.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            pass
 
 
 def _watchdog(signum, frame):
@@ -419,6 +473,24 @@ def kernel_check(torch, fast_cuda, fast_ops, level_shapes):
             equal_or_fail(nms_1, fast_ops.nms3x3(ref),
                           f"lane {r} nms {h}x{w} vs plain")
     cases += 1
+    # Other scales' pyramids (odd level shapes: 369x492, 284x379, ... at
+    # 1.3), resampled from a textured frame as build_pyramid resamples
+    # them: one launch over every level, raw and with NMS.
+    from send_slam_tpu_torch.ops.pyramid import build_pyramid
+    odd = {}
+    for scale in ODD_SCALES:
+        pyr = build_pyramid(torch.from_numpy(texture(480, 640, seed=70))
+                            .to(dev), 8, scale)
+        odd[str(scale)] = [list(lv.shape) for lv in pyr]
+        for th in (7.0, 20.0):
+            got = fast_cuda.fast_score_levels_cuda(pyr, th, with_nms=True)
+            for lv, (raw, nms) in zip(pyr, got):
+                ref = fast_ops.fast_score_map(lv, th)
+                what = f"scale {scale} level {tuple(lv.shape)} th={th}"
+                equal_or_fail(raw, ref, f"raw, {what}")
+                equal_or_fail(nms, fast_ops.nms3x3(ref), f"nms, {what}")
+                max_err = max(max_err, float((raw - ref).abs().max()))
+            cases += 1
     # Each lanes path's launch at its own batch, levels and data.
     lanes_err = 0.0
     for name, (levels, th) in lanes_launch_inputs(torch).items():
@@ -428,7 +500,7 @@ def kernel_check(torch, fast_cuda, fast_ops, level_shapes):
         cases += 1
     torch.cuda.synchronize()
     return dict(cases=cases, comparison="torch.equal", max_abs_err=max_err,
-                lanes_max_abs_err=lanes_err)
+                lanes_max_abs_err=lanes_err, odd_scale_level_shapes=odd)
 
 
 def hold_launch(fast_ops, levels, th, got, what):
@@ -570,6 +642,14 @@ def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
 
     pair_plain_ms = cuda_ms(lambda: plain_levels(pair), 5, repeats=3)
     batch_plain_ms = cuda_ms(lambda: plain_levels(lanes), 3, repeats=3)
+    # scale_path's launch: a 640x480 frame's 8 levels at 1.3.
+    from send_slam_tpu_torch.ops.pyramid import build_pyramid
+    odd = build_pyramid(torch.from_numpy(texture(480, 640, seed=70)).to(dev),
+                        8, SCALE_PATH_SCALE)
+    odd_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
+        odd, 7.0, with_nms=True), 50)
+    odd_plain_ms = cuda_ms(lambda: plain_levels(odd), 5, repeats=3)
+    odd_bound = fast_bound(*fast_work(torch, fast_ops, odd, 7.0))
     return dict(
         unit="per 640x480 frame: 8 pyramid levels, raw + NMS at th 7",
         tile=[fast_cuda.TILE_W, fast_cuda.TILE_H],
@@ -581,7 +661,9 @@ def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
         batch=dict(lanes=8, levels=8, ms=batch_ms, plain_ms=batch_plain_ms,
                    **batch_bound),
         pair=dict(lanes=2, levels=8, ms=pair_ms, plain_ms=pair_plain_ms,
-                  **pair_bound))
+                  **pair_bound),
+        scale_1_3=dict(levels=[list(lv.shape) for lv in odd], ms=odd_ms,
+                       plain_ms=odd_plain_ms, **odd_bound))
 
 
 def frontend_check(torch, make_frame, cfg, img):
@@ -684,7 +766,120 @@ def _max_err(a, b):
                         - np.asarray(b, np.float64)).max())
 
 
-def step_parity(torch, System, cfg, snaps, frames, ts):
+def _tree_to(torch, x, dev):
+    """Tensors of a (nested) NamedTuple moved to ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        items = [_tree_to(torch, v, dev) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@contextlib.contextmanager
+def keep_ba_inputs(torch, system):
+    """Keep, on the CPU, the inputs of the main path's first init commit
+    (``bootstrap_map``: its 10-iteration BA with one keyframe fixed) and
+    of its first keyframe insertion that a local BA follows (the map
+    then holds at least two keyframes), for step_parity."""
+    from send_slam_tpu_torch.models import system as sysmod
+    from send_slam_tpu_torch.models.map_state import map_to_numpy
+    kept = {}
+    boot = system._bootstrap_map
+    insert = sysmod.insert_keyframe_with_triangulation
+
+    def keep_boot(m, fa, fb, init_res):
+        if "bootstrap" not in kept:
+            kept["bootstrap"] = (map_to_numpy(m), *(
+                _tree_to(torch, x, "cpu") for x in (fa, fb, init_res)))
+        return boot(m, fa, fb, init_res)
+
+    def keep_insert(m, *args, **kw):
+        if "keyframe" not in kept and int(m.n_kf) >= 2:
+            kept["keyframe"] = (map_to_numpy(m), _tree_to(torch, args, "cpu"),
+                                {k: _tree_to(torch, v, "cpu")
+                                 for k, v in kw.items()})
+        return insert(m, *args, **kw)
+
+    system._bootstrap_map = keep_boot
+    sysmod.insert_keyframe_with_triangulation = keep_insert
+    try:
+        yield kept
+    finally:
+        del system._bootstrap_map
+        sysmod.insert_keyframe_with_triangulation = insert
+
+
+def _diff_fields(a, b):
+    """Per field of two numpy maps that differ: the largest absolute
+    difference (floats) or the number of differing entries."""
+    return {f: (_max_err(a[f], b[f]) if a[f].dtype.kind == "f"
+                else int((a[f] != b[f]).sum()))
+            for f in a if not np.array_equal(a[f], b[f])}
+
+
+def ba_parity(torch, cfg, kept):
+    """C.1: the main path's init commit (``bootstrap_map``) and its first
+    keyframe insertion with the local BA that follows it (as
+    ``System._frame_step`` runs them), from the same kept inputs on the
+    card and on the CPU: each written field's largest difference, the
+    fields of BA_TOL held at it (absolute) and every other field equal
+    within 1e-6 of its largest magnitude (integers exact)."""
+    from send_slam_tpu_torch.models.covisibility import covis_window_ids
+    from send_slam_tpu_torch.models.local_ba import local_bundle_adjustment
+    from send_slam_tpu_torch.models.local_mapping import (
+        bootstrap_map, insert_keyframe_with_triangulation,
+    )
+    from send_slam_tpu_torch.models.map_state import (
+        map_from_numpy, map_to_numpy,
+    )
+    tr = cfg.tracking
+    K = torch.tensor([[cfg.camera.fx, 0.0, cfg.camera.cx],
+                      [0.0, cfg.camera.fy, cfg.camera.cy],
+                      [0.0, 0.0, 1.0]], dtype=torch.float32)
+    out = {}
+    for name in ("bootstrap", "keyframe"):
+        if name not in kept:
+            fail(f"step_parity: the main path ran no {name} step to hold")
+        maps = {}
+        for dev in ("cuda", "cpu"):
+            m = map_from_numpy(kept[name][0], device=dev)
+            Kd = K.to(dev)
+            if name == "bootstrap":
+                fa, fb, init_res = (_tree_to(torch, x, dev)
+                                    for x in kept[name][1:])
+                m = bootstrap_map(m, fa, fb, init_res, Kd, cfg)
+            else:
+                args = _tree_to(torch, kept[name][1], dev)
+                kw = {k: _tree_to(torch, v, dev)
+                      for k, v in kept[name][2].items()}
+                args = (*args[:5], Kd, *args[6:])
+                m, _, _ = insert_keyframe_with_triangulation(m, *args, **kw)
+                if int(m.n_kf) >= 3:
+                    m = local_bundle_adjustment(
+                        m, Kd, cfg.map, iters=tr.kf_insert_ba_iters,
+                        damping=tr.ba_slice_damping,
+                        window_ids=covis_window_ids(m, cfg.map.ba_window)[0],
+                        prune=True)
+            maps[dev] = map_to_numpy(m)
+        g, c = maps["cuda"], maps["cpu"]
+        ba_err = {f: _max_err(g[f], c[f]) for f in BA_TOL}
+        rest = [f for f in c if f not in BA_TOL]
+        same, rel = _np_fields_close({f: g[f] for f in rest},
+                                     {f: c[f] for f in rest}, 1e-6)
+        out[name] = dict(
+            n_kf=int(c["n_kf"]), differing=_diff_fields(g, c),
+            ba_fields_abs_err=ba_err,
+            ba_fields_share_of_bar={f: ba_err[f] / BA_TOL[f]
+                                    for f in BA_TOL},
+            other_fields_rel_err=rel, other_fields_equal=bool(same))
+        if not same or any(ba_err[f] > BA_TOL[f] for f in BA_TOL):
+            fail(f"step_parity: {name} card vs CPU beyond BA_TOL or the "
+                 f"1e-6 bar: {out[name]}")
+    return out
+
+
+def step_parity(torch, System, cfg, snaps, frames, ts, kept_ba):
     """Phase 7 (ROADMAP C.2): from the card's carried state at each
     snapshot, the frame step, a wide and a young polish slice and the
     relocalization step on the card and on the CPU, compared."""
@@ -772,8 +967,10 @@ def step_parity(torch, System, cfg, snaps, frames, ts):
                      polish=max(worst["polish"], e_pol),
                      reloc_pose=max(worst["reloc_pose"], e_rel),
                      reloc_inliers=max(worst["reloc_inliers"], d_rel))
-    return dict(tolerances=dict(pose=1e-4, inliers=2, polish=1e-3),
-                worst=worst, checks=checks, card_ms_per_call=card_ms)
+    return dict(tolerances=dict(pose=1e-4, inliers=2, polish=1e-3,
+                                ba_fields_abs=BA_TOL),
+                worst=worst, checks=checks, card_ms_per_call=card_ms,
+                ba=ba_parity(torch, cfg, kept_ba))
 
 
 def reloc_phase(system, frames, ts, gt, est_ts, est_pos):
@@ -1426,6 +1623,7 @@ def sessions_main(outdir: str) -> int:
     cfg = flagship_config()
     _, kept_long = long_session(torch, System, cfg, fast_cuda)
     _, kept_atlas = atlas_path(torch, System, cfg, fast_cuda)
+    scale_path(torch, System, fast_cuda)
     kept_atlas.pop("sim3_failed")
     torch.save(_pack(dict(kept_long, **kept_atlas)),
                os.path.join(outdir, "kept.pt"))
@@ -1476,7 +1674,8 @@ def join_sessions(torch, child, outdir):
                         "the long and atlas sessions")
     kept = _unpack(torch.load(os.path.join(outdir, "kept.pt"),
                               weights_only=True), "cuda")
-    return phases["long_session"], phases["atlas_path"], kept
+    return phases["long_session"], phases["atlas_path"], \
+        phases["scale_path"], kept
 
 
 def _fields_close(a, b, rel):
@@ -2093,13 +2292,18 @@ def lanes_ring(torch, fast_cuda):
         return rendered[k], np.full(RING_LANES, ts[k], np.float32)
 
     t_phase = time.perf_counter()
-    runs = []
+    runs, befores = [], []
+
+    def keep(k, before, row):
+        if len(runs) == 0:
+            befores.append(before)
+
     for _ in range(2):
         fast_cuda.launches = 0
         with launch_record(fast_cuda) as recorded:
             state = init_multicam(cfg, RING_LANES, device=CARD, seed=0)
             state, rows, ms = run_lanes(torch, step, state, images,
-                                        range(RING_STEPS))
+                                        range(RING_STEPS), after=keep)
         launches = fast_cuda.launches
         shapes = launch_shapes(recorded)
         held, held_err = hold_launches(fast_ops, recorded, "lanes_ring")
@@ -2159,6 +2363,397 @@ def lanes_ring(torch, fast_cuda):
              "levels)")
     if not replay:
         fail("lanes_ring: the same-seed rerun is not bit-equal")
+    afters = befores[1:] + [a["state"]]
+    return res, dict(
+        cfg=cfg, maps=a["state"].maps,
+        noises=merge_noise(RING_LANES, cfg.map.max_landmarks, seed=17),
+        merged=a["merged"], ok=a["ok"], n_imp=a["n_imp"],
+        steps=[(befores[k], *images(k), afters[k], a["rows"][k])
+               for k in range(RING_STEPS)])
+
+
+def _lanes_of(torch, state, lanes, dev):
+    """The lanes ``lanes`` of a MultiCamState as a state of their own,
+    every tensor on ``dev`` (the generator states on the CPU)."""
+    from send_slam_tpu_torch.models.map_state import MapState
+    idx = torch.tensor(list(lanes))
+    return state._replace(
+        maps=MapState(**{f.name: getattr(state.maps, f.name)[idx.to(
+            getattr(state.maps, f.name).device)].to(dev)
+            for f in dataclasses.fields(MapState)}),
+        rng=state.rng[idx],
+        **{f: getattr(state, f)[idx.to(getattr(state, f).device)].to(dev)
+           for f in state._fields if f not in ("maps", "rng")})
+
+
+def _state_np(torch, state):
+    """Every field of a MultiCamState as numpy, the maps' fields too."""
+    from send_slam_tpu_torch.parallel.multicam import (
+        multicam_state_to_numpy,
+    )
+    d = multicam_state_to_numpy(state)
+    d.update({"maps." + f: v for f, v in d.pop("maps").items()})
+    d["rng"] = state.rng.numpy()
+    return d
+
+
+def lanes_mixed_mesh(torch, cfg, kept):
+    """C.3: lanes_ring's steps and merge on a mesh of the card and the
+    CPU (four lanes on each; their slices move to the CPU and back as a
+    two-card mesh moves them), each step from the one-card run's state
+    before it. The moves, checked: the card's lanes equal the one-card
+    run's bit for bit with every field back on the card, and the CPU's
+    lanes equal a CPU mesh's run of the same lanes bit for bit. The
+    merge, checked: each lane's equal to its merge on its own device,
+    verdicts and imports equal the one-card run's. The devices, reported
+    and not checked: the CPU's lanes against the one-card run at
+    lanes_parity's bars, which a lane step at the parallax floor misses
+    (an init decision, a commit's low-parallax landmarks; ROADMAP C.3)."""
+    from send_slam_tpu_torch.parallel import make_mesh, multicam_slam_step
+    from send_slam_tpu_torch.parallel.map_merge import (
+        merge_from_partner, multicam_merge_step,
+    )
+    from send_slam_tpu_torch.parallel.multicam import lane_map
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=list(MIXED_DEVICES))
+    blocks = mesh.lane_blocks(RING_LANES)
+    card, cpu_lanes = list(blocks[0][1]), list(blocks[1][1])
+    step = multicam_slam_step(cfg, mesh)
+    step_cpu = multicam_slam_step(cfg, make_mesh(1, devices=["cpu"]))
+    exact_cols = [0, 2, 3, 7, 8, 9]
+    moves_bad, beyond = [], []
+    worst = dict(pose=0.0, inliers=0, ba_abs={f: 0.0 for f in BA_TOL})
+    for k, (before, imgs, tss, after, row) in enumerate(kept["steps"]):
+        st, summary = step(before, imgs, tss)
+        mixed, one = _state_np(torch, st), _state_np(torch, after)
+        cs_ = summary.cpu().numpy()
+        devices = {str(getattr(st, f).device) for f in st._fields
+                   if f not in ("maps", "rng")}
+        devices |= {str(getattr(st.maps, f.name).device)
+                    for f in dataclasses.fields(st.maps)}
+        if not (all(np.array_equal(mixed[f][card], one[f][card])
+                    for f in one)
+                and np.array_equal(cs_[card], row[card])
+                and devices == {"cuda:0"}):
+            moves_bad.append(dict(step=k, lanes="card",
+                                  devices=sorted(devices)))
+        ref_cpu, row_cpu = step_cpu(_lanes_of(torch, before, cpu_lanes,
+                                              "cpu"), imgs[cpu_lanes],
+                                    tss[cpu_lanes])
+        ref_cpu = _state_np(torch, ref_cpu)
+        if not (all(np.array_equal(mixed[f][cpu_lanes], ref_cpu[f])
+                    for f in ref_cpu)
+                and np.array_equal(cs_[cpu_lanes], row_cpu.numpy())):
+            moves_bad.append(dict(step=k, lanes="cpu"))
+        # The CPU's lanes against the one-card run (lanes_parity's bars).
+        g, c = one, mixed
+        pose = max(_max_err(row[cpu_lanes][:, 4:7], cs_[cpu_lanes][:, 4:7]),
+                   _max_err(g["R"][cpu_lanes], c["R"][cpu_lanes]),
+                   _max_err(g["t"][cpu_lanes], c["t"][cpu_lanes]))
+        d_inl = int(np.abs(row[cpu_lanes][:, 1] - cs_[cpu_lanes][:, 1]).max())
+        ba = {f: _max_err(g["maps." + f][cpu_lanes], c["maps." + f][cpu_lanes])
+              for f in BA_TOL}
+        ints = [f for f in g if g[f].dtype.kind != "f" and f != "rng"]
+        ints_same = all(np.array_equal(g[f][cpu_lanes], c[f][cpu_lanes])
+                        for f in ints)
+        if (np.array_equal(row[cpu_lanes][:, exact_cols],
+                           cs_[cpu_lanes][:, exact_cols])
+                and ints_same and d_inl <= 2 and pose <= 1e-4
+                and all(ba[f] <= BA_TOL[f] for f in BA_TOL)):
+            worst = dict(pose=max(worst["pose"], pose),
+                         inliers=max(worst["inliers"], d_inl),
+                         ba_abs={f: max(worst["ba_abs"][f], ba[f])
+                                 for f in BA_TOL})
+        else:
+            beyond.append(dict(
+                step=k, lanes=[c_ for c_ in cpu_lanes
+                               if not np.array_equal(row[c_], cs_[c_])],
+                ints_differ=[f for f in ints if not np.array_equal(
+                    g[f][cpu_lanes], c[f][cpu_lanes])],
+                pose=pose, inliers=d_inl, ba_abs=ba,
+                rows_one_card=row[cpu_lanes].tolist(),
+                rows_mixed=cs_[cpu_lanes].tolist()))
+    merged, ok_m, n_m = multicam_merge_step(cfg, mesh)(kept["maps"],
+                                                      kept["noises"])
+    maps, noises, tr = kept["maps"], kept["noises"], cfg.tracking
+    merge_moves = True
+    for k in range(RING_LANES):
+        j = (k + 1) % RING_LANES
+        dev = "cuda" if k in blocks[0][1] else "cpu"
+        ref = merge_from_partner(lane_map(maps, k, dev),
+                                 maps.lm_pos[j].to(dev),
+                                 maps.lm_desc[j].to(dev),
+                                 maps.lm_valid[j].to(dev), noises[k], tr)
+        merge_moves &= (bool(ok_m[k].cpu() == ref[1].cpu())
+                        and bool(n_m[k].cpu() == ref[2].cpu())
+                        and all(getattr(merged, f.name)[k].cpu().equal(
+                            getattr(ref[0], f.name).cpu())
+                            for f in dataclasses.fields(ref[0])))
+    verdicts_equal = (np.array_equal(ok_m.cpu().numpy(), kept["ok"])
+                      and np.array_equal(n_m.cpu().numpy(), kept["n_imp"]))
+    res = dict(phase="lanes_mixed_mesh", devices=list(MIXED_DEVICES),
+               lane_blocks=[[str(d), list(r)] for d, r in blocks],
+               steps=len(kept["steps"]),
+               moves_bit_equal=not moves_bad, moves_beyond=moves_bad,
+               merge_moves_bit_equal=merge_moves,
+               cpu_lanes_vs_one_card=dict(
+                   tolerances=dict(step_integers="exact", inliers=2,
+                                   poses=1e-4, ba_fields_abs=BA_TOL),
+                   lane_steps=len(kept["steps"]) * len(cpu_lanes),
+                   steps_within=len(kept["steps"]) - len(beyond),
+                   worst_within=worst, steps_beyond=beyond),
+               merge_ok=ok_m.cpu().tolist(), merge_imported=n_m.cpu().tolist(),
+               merge_verdicts_equal_one_card=verdicts_equal,
+               seconds=time.perf_counter() - t_phase)
+    emit(res)
+    if moves_bad:
+        fail(f"lanes_mixed_mesh: the mixed mesh's lanes differ from their "
+             f"own device's run, or came back elsewhere: {moves_bad[:3]}")
+    if not merge_moves:
+        fail("lanes_mixed_mesh: the mixed merge differs from each lane's "
+             "merge on its own device")
+    if not verdicts_equal:
+        fail(f"lanes_mixed_mesh: merge verdicts {res['merge_ok']} and imports "
+             f"{res['merge_imported']} differ from the one-card run's")
+    return res
+
+
+def scale_path(torch, System, fast_cuda):
+    """The main path's frames at ``OrbConfig(scale_factor=1.3)``, every
+    other option flagship: the pyramid resampled at odd level shapes,
+    one FAST launch per make_frame over them."""
+    from send_slam_tpu_torch.io.evaluate import ate_rmse
+    from send_slam_tpu_torch.ops.pyramid import level_shapes
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+    base = flagship_config()
+    cfg = base.replace(orb=dataclasses.replace(
+        base.orb, scale_factor=SCALE_PATH_SCALE))
+    world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
+                           fy=520.0, seed=11)
+    ts, Rs, tls = world.trajectory(n_frames=N_FRAMES)
+    frames = [np.round(world.render(Rs[k], tls[k])).astype(np.uint8)
+              for k in range(N_FRAMES)]
+    system = System(cfg, device="cuda")
+    system.frames_extracted = 0
+    fast_cuda.launches = 0
+    run = drive(torch, system, frames, ts)
+    launches = fast_cuda.launches
+    gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
+    est_ts, pos = run["est_ts"], run["est_pos"]
+    tracked = len(est_ts)
+    ate = ate_rmse(est_ts, pos, ts, gt) if tracked >= 3 else float("inf")
+    res = dict(
+        phase="scale_path", scale_factor=SCALE_PATH_SCALE,
+        level_shapes=[list(x) for x in level_shapes(480, 640, 8,
+                                                     SCALE_PATH_SCALE)],
+        frames=N_FRAMES, tracked=tracked, tracked_live=run["live"],
+        backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
+        keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
+        frames_through_make_frame=system.frames_extracted,
+        fast_launches=launches,
+        median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
+                                     if len(run["t_ok"]) > 1 else None),
+        seconds=run["seconds"])
+    emit(res)
+    if launches != system.frames_extracted or launches == 0:
+        fail(f"scale_path: {launches} FAST launches for "
+             f"{system.frames_extracted} make_frame calls")
+    if tracked < MIN_TRACKED or not np.isfinite(ate):
+        fail(f"scale_path: tracked {tracked} of {N_FRAMES} (< {MIN_TRACKED})"
+             f" or ATE {ate}")
+    return res
+
+
+def render_board(torch, rvec, tvec, noise=0.0, seed=0):
+    """tests/test_calibration.py's render_board without cv2: the
+    checkerboard plane (z = 0) seen by CALIB_K with CALIB_DIST, rendered
+    by inverse warp, blurred by the port's gaussian_blur at (5, 1.0) on
+    the CPU where that test calls cv2.GaussianBlur((5, 5), 1.0)."""
+    from scipy.spatial.transform import Rotation
+    from send_slam_tpu_torch.ops.pyramid import gaussian_blur
+    R = Rotation.from_rotvec(rvec).as_matrix()
+    t = np.asarray(tvec, float)
+    us, vs = np.meshgrid(np.arange(640), np.arange(480))
+    x = (us - CALIB_K[0, 2]) / CALIB_K[0, 0]
+    y = (vs - CALIB_K[1, 2]) / CALIB_K[1, 1]
+    k1, k2, p1, p2, k3 = CALIB_DIST
+    xn, yn = x.copy(), y.copy()
+    for _ in range(10):
+        r2 = xn * xn + yn * yn
+        radial = 1 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2 * p1 * xn * yn + p2 * (r2 + 2 * xn * xn)
+        dy = p1 * (r2 + 2 * yn * yn) + 2 * p2 * xn * yn
+        xn = (x - dx) / radial
+        yn = (y - dy) / radial
+    Rinv = R.T
+    rays = np.stack([xn, yn, np.ones_like(xn)], -1)
+    denom = rays @ Rinv.T[:, 2]
+    lam = (Rinv @ t)[2] / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+    Xb = np.einsum('ij,hwj->hwi', Rinv, lam[..., None] * rays - t)
+    bx, by = Xb[..., 0] / CALIB_SQUARE, Xb[..., 1] / CALIB_SQUARE
+    cols, rows = CALIB_PATTERN
+    inside = (bx > -1) & (bx < cols) & (by > -1) & (by < rows) & (lam > 0)
+    checker = ((np.floor(bx) + np.floor(by)) % 2 == 0)
+    img = np.where(inside, np.where(checker, 235.0, 25.0), 230.0)
+    img = gaussian_blur(torch.from_numpy(img.astype(np.float32)), 1.0,
+                        5).numpy()
+    if noise:
+        img = img + np.random.default_rng(seed).normal(0, noise, img.shape)
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
+def board_views(torch):
+    """tests/test_calibration.py's board_views: CALIB_VIEWS views that
+    keep the whole board in sight, sensor noise 0.5."""
+    rng = np.random.default_rng(42)
+    cx_b = CALIB_PATTERN[0] * CALIB_SQUARE / 2
+    cy_b = CALIB_PATTERN[1] * CALIB_SQUARE / 2
+    views = []
+    for i in range(CALIB_VIEWS):
+        rvec = np.array([rng.uniform(-0.35, 0.35), rng.uniform(-0.35, 0.35),
+                         rng.uniform(-0.5, 0.5)])
+        tvec = np.array([-cx_b + rng.uniform(-40, 40),
+                         -cy_b + rng.uniform(-30, 30),
+                         rng.uniform(420, 650)])
+        views.append(render_board(torch, rvec, tvec, 0.5, i))
+    return views
+
+
+def calibration(torch):
+    """Calibration on the card: detect_checkerboard and calibrate on the
+    board views, card against CPU, recovered focal lengths against the
+    truth; then GET /panel of an ``Application`` replaying the boards:
+    PANEL_FRAMES JPEG frames sent back as the calibration upload must be
+    answered "OK", write the calibration JSON and publish CALIBRATION
+    once."""
+    from send_slam_tpu_torch.calib.checkerboard import detect_checkerboard
+    from send_slam_tpu_torch.calib.io import ENV_VAR, load_from_file
+    from send_slam_tpu_torch.calib.pipeline import calibrate
+    from send_slam_tpu_torch.config import ServerConfig
+    from send_slam_tpu_torch.io.jpeg import decode_jpeg_gray, encode_jpeg
+    from send_slam_tpu_torch.io.ppm import encode_ppm
+    from send_slam_tpu_torch.server import bus as topics
+    from send_slam_tpu_torch.server.app import Application
+    t_phase = time.perf_counter()
+    views = board_views(torch)
+    corners, det_ms, cal, cal_ms = {}, {}, {}, {}
+    for dev in ("cuda", "cpu", "cuda"):      # the card twice: warm, timed
+        t0 = time.perf_counter()
+        corners[dev] = [detect_checkerboard(v, CALIB_PATTERN, device=dev)
+                        for v in views]
+        t1 = time.perf_counter()
+        cal[dev] = calibrate(views, CALIB_PATTERN, CALIB_SQUARE, device=dev)
+        t2 = time.perf_counter()
+        det_ms[dev] = (t1 - t0) / len(views) * 1e3
+        cal_ms[dev] = (t2 - t1) * 1e3
+    found = {d: [c is not None for c in corners[d]] for d in corners}
+    corner_err = max((_max_err(a, b) for a, b in zip(corners["cuda"],
+                                                      corners["cpu"])
+                      if a is not None and b is not None), default=0.0)
+    Kg, Kc = cal["cuda"]["camera_matrix"], cal["cpu"]["camera_matrix"]
+    k_rel = float(np.abs(Kg - Kc).max() / np.abs(Kc).max())
+    f_rel = {d: [abs(cal[d]["camera_matrix"][i, i] - CALIB_K[i, i])
+                 / CALIB_K[i, i] for i in (0, 1)] for d in cal}
+    rgb = np.repeat(np.round(views[0]).astype(np.uint8)[..., None], 3, 2)
+    jpeg = encode_jpeg(rgb)
+    enc_ms = host_ms(lambda: encode_jpeg(rgb), 20)
+    dec_ms = host_ms(lambda: decode_jpeg_gray(jpeg), 20)
+
+    # /panel of an Application replaying the boards (no engine).
+    seq = tempfile.mkdtemp(prefix="chip_smoke_boards_")
+    atexit.register(shutil.rmtree, seq, ignore_errors=True)
+    for k, v in enumerate(views):
+        with open(os.path.join(seq, f"{k:06d}.ppm"), "wb") as f:
+            f.write(encode_ppm(np.repeat(np.round(v).astype(np.uint8)
+                                         [..., None], 3, 2)))
+    out_path = os.path.join(seq, "calibration", "latest.json")
+    os.environ[ENV_VAR] = out_path
+    base = flagship_config()
+    cfg = base.replace(
+        camera=dataclasses.replace(base.camera, fps=PANEL_FPS),
+        server=ServerConfig(http_port=0, tcp_port=0))
+    count = dict(camera=0, skipped=0, calibration=0)
+
+    async def go():
+        app = Application(config=cfg, video=os.path.join(seq, "%06d.ppm"),
+                          run_engine=False, run_tcp=False, run_web=True,
+                          device="cuda")
+        publish = app.bus.publish
+
+        def counted(topic, msg):
+            subs = app.bus._subs.get(topics.CAMERA, ())
+            if topic == topics.CAMERA and subs:
+                count["camera"] += 1
+                count["skipped"] += sum(q.full() for q in subs)
+            elif topic == topics.CALIBRATION:
+                count["calibration"] += 1
+            publish(topic, msg)
+
+        app.bus.publish = counted
+        await app.start()
+        try:
+            ws = await WsClient.connect(app.web.bound_port, "/panel")
+            jpegs = []
+            while len(jpegs) < PANEL_FRAMES:
+                op, data = await asyncio.wait_for(ws.recv(), 30)
+                if op == 0x2:
+                    jpegs.append(data)
+            upload = json.dumps({"calibrationFrames": [
+                "data:image/jpeg;base64," + base64.b64encode(j).decode()
+                for j in jpegs]}).encode()
+            t0 = time.perf_counter()
+            await ws.send(0x1, upload)
+            while True:
+                op, data = await asyncio.wait_for(ws.recv(), 120)
+                if op == 0x1:
+                    break
+            reply_ms = (time.perf_counter() - t0) * 1e3
+            sent = app.web.frames_sent
+            await ws.close()
+        finally:
+            await app.stop()
+        return data.decode(), reply_ms, sent, len(upload), jpegs
+
+    reply, reply_ms, sent, upload_bytes, jpegs = asyncio.run(
+        asyncio.wait_for(go(), 180))
+    saved = load_from_file(out_path) if os.path.exists(out_path) else None
+    res = dict(
+        phase="calibration", views=CALIB_VIEWS, pattern=list(CALIB_PATTERN),
+        found=found, corner_err_px=corner_err, K_rel_err=k_rel,
+        K=dict(cuda=Kg.tolist(), cpu=Kc.tolist()),
+        distortion=dict(cuda=cal["cuda"]["distortion_coeffs"].tolist(),
+                        cpu=cal["cpu"]["distortion_coeffs"].tolist()),
+        f_rel_err_to_truth=f_rel,
+        reprojection_px={d: cal[d]["reprojection_error"] for d in cal},
+        detect_ms_per_view=det_ms, calibrate_ms=cal_ms,
+        jpeg=dict(bytes=len(jpeg), encode_ms=enc_ms, decode_ms=dec_ms,
+                  shape=list(rgb.shape)),
+        panel=dict(reply=reply, reply_ms=reply_ms, upload_bytes=upload_bytes,
+                   jpeg_bytes=[len(j) for j in jpegs],
+                   frames_published_while_open=count["camera"],
+                   frames_sent=sent, frames_skipped=count["skipped"],
+                   calibration_publishes=count["calibration"],
+                   saved=saved is not None,
+                   saved_K=(saved["camera_matrix"].tolist()
+                            if saved is not None else None)),
+        seconds=time.perf_counter() - t_phase)
+    emit(res)
+    if found["cuda"] != found["cpu"] or not all(found["cpu"]):
+        fail(f"calibration: detections card {found['cuda']} CPU "
+             f"{found['cpu']}")
+    if corner_err > CALIB_CORNER_TOL or k_rel > CALIB_K_REL:
+        fail(f"calibration: card vs CPU corners {corner_err} px (bar "
+             f"{CALIB_CORNER_TOL}), K {k_rel} relative (bar {CALIB_K_REL})")
+    if max(max(v) for v in f_rel.values()) > CALIB_F_REL:
+        fail(f"calibration: fx, fy off the truth by {f_rel} (bar "
+             f"{CALIB_F_REL})")
+    if reply != "OK" or saved is None or count["calibration"] != 1:
+        fail(f"calibration: /panel answered {reply!r}, saved "
+             f"{saved is not None}, {count['calibration']} CALIBRATION "
+             "publishes")
+    if saved["camera_matrix"].shape != (3, 3) \
+            or saved["distortion_coeffs"].shape != (1, 5):
+        fail("calibration: the saved JSON is not in the reference layout")
     return res
 
 
@@ -2174,7 +2769,9 @@ def lanes_main(outdir: str, ring: bool) -> int:
     from send_slam_tpu_torch.ops import fast_cuda
     fast_cuda.load()
     if ring:
-        lanes_ring(torch, fast_cuda)
+        _, kept = lanes_ring(torch, fast_cuda)
+        lanes_mixed_mesh(torch, kept["cfg"], kept)
+        calibration(torch)
     else:
         _, kept = lanes_path(torch, fast_cuda)
         lanes_parity(torch, kept)
@@ -2242,15 +2839,19 @@ class WsClient:
                                   f"{headers})")
         return cls(reader, writer)
 
-    async def send(self, opcode, payload=b""):
+    async def send(self, opcode, payload=b"", fin=True):
+        """One masked frame; ``fin=False`` leaves the message open (a
+        fragment, continued by frames of opcode 0)."""
         n, mask = len(payload), os.urandom(4)
+        b0 = (0x80 if fin else 0) | opcode
         if n < 126:
-            head = bytes([0x80 | opcode, 0x80 | n])
+            head = bytes([b0, 0x80 | n])
         elif n < 1 << 16:
-            head = bytes([0x80 | opcode, 0x80 | 126]) + n.to_bytes(2, "big")
+            head = bytes([b0, 0x80 | 126]) + n.to_bytes(2, "big")
         else:
-            head = bytes([0x80 | opcode, 0x80 | 127]) + n.to_bytes(8, "big")
-        body = bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+            head = bytes([b0, 0x80 | 127]) + n.to_bytes(8, "big")
+        key = int.from_bytes((mask * (n // 4 + 1))[:n], "big")
+        body = (int.from_bytes(payload, "big") ^ key).to_bytes(n, "big")
         self.writer.write(head + mask + body)
         await self.writer.drain()
 
@@ -2738,11 +3339,12 @@ def main() -> int:
             snaps.append(dict(k=k, map=map_to_numpy(s.map),
                               st=loop_state_to_numpy(s._st), t0=s._t0))
 
-    fast_cuda.launches = 0
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    run = drive(torch, system, frames, ts, after_frame=snapshot)
-    launches = fast_cuda.launches
+    with keep_ba_inputs(torch, system) as kept_ba:
+        fast_cuda.launches = 0
+        run = drive(torch, system, frames, ts, after_frame=snapshot)
+        launches = fast_cuda.launches
     run["trajectory"] = system.trajectory()
     n_extracted = system.frames_extracted
 
@@ -2801,7 +3403,8 @@ def main() -> int:
         fail(f"only {len(snaps)} carried states were taken at or past the "
              f"main path's frames {PARITY_FRAMES}: no step parity")
     emit(dict(phase="step_parity",
-              **step_parity(torch, System, cfg, snaps, frames, ts)))
+              **step_parity(torch, System, cfg, snaps, frames, ts,
+                            kept_ba)))
 
     # --- 8. relocalization on the main run's System -----------------------
     reloc_ms = time_calls(torch, system, ("_reloc_step",))
@@ -2816,7 +3419,7 @@ def main() -> int:
     loop_parity(torch, System, cfg, kept)
 
     # --- 12-14. compaction, the atlas, their programs card vs CPU ---------
-    ls, ap, kept = join_sessions(torch, child, tmp)
+    ls, ap, sp, kept = join_sessions(torch, child, tmp)
     long_parity(torch, System, kept, cfg)
 
     # --- 15-17. the camera lanes, their parity and the 8-lane ring -------
@@ -2833,12 +3436,16 @@ def main() -> int:
         "loop_path_launches": lp["fast_launches"],
         "long_session_launches": ls["fast_launches"],
         "atlas_path_launches": ap["fast_launches"],
+        "scale_path_launches": sp["fast_launches"],
+        "scale_path_make_frame_calls": sp["frames_through_make_frame"],
         "max_abs_err": kc["max_abs_err"],
         "max_abs_diff": kc["max_abs_err"],
         "ms": kt["ms"], "launch_interval_ms": kt["launch_interval_ms"],
         "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
-        "library_ms": None, "unit": kt["unit"]}, {
+        "library_ms": None, "unit": kt["unit"],
+        "scale_1_3": {k: kt["scale_1_3"][k] for k in (
+            "levels", "ms", "plain_ms", "bound_ms", "bound_by")}}, {
         "name": "fast_score_batched", "route": "cuda",
         "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
         "replaces": "send_slam_tpu/ops/pallas/fast_kernel.py:198",

@@ -8,6 +8,10 @@ atlas scene on the CPU, in either package.
     python scripts/cpu_reference_run.py --package torch --scene long
     JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax \
         --scene atlas
+    JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax \
+        --scale 1.3
+    JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax \
+        --scene lanes --seed 2
 
 Runs ``System.track_monocular`` at chip_smoke.py's configuration
 (640x480, 1250 features, 8 levels, 256 keyframes, 16384 landmarks, BA
@@ -15,7 +19,9 @@ window 8, the JAX package's default options, loop closing on) over the
 synthetic bench scene (seed 11): ``--scene bench`` is the main path's
 90-frame arc, ``--scene laps`` the long bench's revisit trajectory
 (``trajectory_laps`` over 1000 frames and 6 laps), of which the first
-``--frames`` frames run. Poses are counted as bench.py counts them
+``--frames`` frames run, with the ORB pyramid at ``--scale`` (1.2 by
+default; chip_smoke.py's scale_path runs 1.3). Poses are counted as
+bench.py counts them
 (live OK outputs, backfill triples, the final drain). Prints one JSON
 line: tracked, live, backfilled, unique timestamps, the streamed ATE,
 keyframes, the init commit time and every failed collapse probe (commit
@@ -39,14 +45,16 @@ matches, inliers), and the frames OK (tracking state 2) among the last
 0 on the bench arc's path at twice its pace and lane 1 on the same path
 shifted 0.35 m along +x, one ring merge after step 70 and 10 more
 steps. It prints each lane's
-commit step, tracked share after it, kf_total, keyframes, landmarks,
-loops, Sim(3)-aligned ATE, and the merge's verdicts, imports and the
-imports' median distance to the true structure through the lane's
-gauge. The JAX package draws from jax.random keys (PRNGKey(0), split
-per step as tests/test_parallel.py does) and merges lane by lane
+commit step, the steps at which it fell out of tracking (resets),
+tracked share after the commit, kf_total, keyframes, landmarks, loops,
+Sim(3)-aligned ATE, and the merge's verdicts, imports and the imports'
+median distance to the true structure through the lane's gauge. The
+JAX package draws from jax.random keys (PRNGKey(``--seed``), split per
+step as tests/test_parallel.py does) and merges lane by lane
 (``merge_from_partner`` jitted once, to bound its memory); the port
-from its lanes' seeded generators and chip_smoke.py's merge draws, as
-on the card. Several minutes; the JAX merge at 16384 landmarks holds a
+from its lanes' generators (``init_multicam(seed=--seed)``) and
+chip_smoke.py's merge draws, as on the card (scripts/lanes_seeds.py
+runs the port's seeds there). Several minutes; the JAX merge at 16384 landmarks holds a
 few GB.
 
 The port draws its RANSAC samples from a CPU generator on every device,
@@ -76,10 +84,15 @@ def main() -> int:
                                         "lanes"),
                     default="bench")
     ap.add_argument("--frames", type=int, default=90)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="--scene lanes: the lanes' draws (the JAX "
+                         "package's PRNGKey, the port's init_multicam seed)")
+    ap.add_argument("--scale", type=float, default=1.2,
+                    help="the ORB pyramid's scale factor")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     if args.scene == "lanes":
-        return lanes(args.package)
+        return lanes(args.package, args.seed)
     if args.package == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -98,7 +111,8 @@ def main() -> int:
 
     cam = C.CameraConfig(width=640, height=480, fx=520.0, fy=520.0,
                          cx=320.0, cy=240.0)
-    cfg = C.EngineConfig(camera=cam)
+    cfg = C.EngineConfig(camera=cam,
+                         orb=C.OrbConfig(scale_factor=args.scale))
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
     poses = None
@@ -215,6 +229,7 @@ def main() -> int:
     applied = [a for a in attempts if a["attempt"][3] is True]
     print(json.dumps(dict(
         package=args.package, scene=args.scene, frames=args.frames,
+        scale=args.scale,
         tracked=len(est), tracked_live=live, backfilled=backfilled,
         tracked_unique=len({e[0] for e in est}), ate_m=ate,
         keyframes=int(s._n_kf_host), init_commit_ts=s.init_commit_ts,
@@ -235,8 +250,9 @@ def main() -> int:
     return 0
 
 
-def lanes(package: str) -> int:
-    """chip_smoke.py's lanes_path in ``package`` on the CPU."""
+def lanes(package: str, seed: int) -> int:
+    """chip_smoke.py's lanes_path in ``package`` on the CPU, its draws
+    from ``seed``."""
     import chip_smoke as cs
     world, ts, poses, centres = cs.lanes_scene()
     n_steps = cs.LANES_MERGE_AFTER + cs.LANES_AFTER
@@ -264,7 +280,7 @@ def lanes(package: str) -> int:
                                   loop_closing=True)
         merge_one = jax.jit(merge_from_partner, static_argnums=(5,))
         state = init_multicam(cfg, 2)
-        key = jax.random.PRNGKey(0)
+        key = jax.random.PRNGKey(seed)
         for k in range(n_steps):
             if k == cs.LANES_MERGE_AFTER:
                 pre = {f: np.asarray(getattr(state.maps, f))
@@ -299,7 +315,7 @@ def lanes(package: str) -> int:
         cfg = cs.flagship_config()
         mesh = make_mesh(1, devices=["cpu"])
         step = multicam_slam_step(cfg, mesh, loop_closing=True)
-        state = init_multicam(cfg, 2, device="cpu", seed=0)
+        state = init_multicam(cfg, 2, device="cpu", seed=seed)
         for k in range(n_steps):
             if k == cs.LANES_MERGE_AFTER:
                 pre = {f: getattr(state.maps, f).numpy()
@@ -322,8 +338,10 @@ def lanes(package: str) -> int:
         n_imported, med = cs.import_structure(
             pre["lm_valid"][c], post["lm_valid"][c], post["lm_pos"][c],
             ates[c][1], world.points)
+        resets = [k for k in range(1, len(rows))
+                  if rows[k - 1, c, 0] == 2 and rows[k, c, 0] != 2]
         out.append(dict(
-            commit_step=first,
+            commit_step=first, reset_steps=resets,
             tracking_share_after_commit=(float(tracked[first:].mean())
                                          if first is not None else 0.0),
             kf_total=int(rows[-1, c, 8]), n_kf=int(rows[-1, c, 2]),
@@ -331,7 +349,8 @@ def lanes(package: str) -> int:
             final_mode=int(rows[-1, c, 0]), ate_m=ates[c][0],
             merge_ok=ok[c], imported=n_imp[c],
             import_median_to_structure_m=med))
-    print(json.dumps(dict(package=package, scene="lanes", steps=n_steps,
+    print(json.dumps(dict(package=package, scene="lanes", seed=seed,
+                          steps=n_steps,
                           merge_after=cs.LANES_MERGE_AFTER, lanes=out,
                           seconds=time.perf_counter() - t0)), flush=True)
     return 0

@@ -495,3 +495,61 @@ class EngineConfig:
 
 DEFAULT = EngineConfig()
 
+
+def from_orbslam_yaml(path_or_text: str) -> EngineConfig:
+    """Build an EngineConfig from an ORB-SLAM3 settings YAML — the
+    format the reference adapter generates for the backend
+    (orbslam3_mono_networked.cc:158-223: Camera1.fx/fy/cx/cy/k1...,
+    Camera.width/height/fps, ORBextractor.nFeatures/scaleFactor/
+    nLevels/iniThFAST/minThFAST). Accepts a path or the YAML text.
+    The reference files start with the "%YAML:1.0" OpenCV header, which
+    plain YAML parsers reject — it is stripped here."""
+    import os
+    import yaml
+
+    text = path_or_text
+    if os.path.exists(path_or_text):
+        with open(path_or_text) as f:
+            text = f.read()
+    lines = [l for l in text.splitlines()
+             if not l.strip().startswith("%YAML") and l.strip() != "---"]
+    data = yaml.safe_load("\n".join(lines)) or {}
+
+    def get(key, default):
+        return data.get(key, default)
+
+    cam = CameraConfig(
+        model=str(get("Camera.type", "PinHole")),
+        width=int(get("Camera.width", 640)),
+        height=int(get("Camera.height", 480)),
+        fx=float(get("Camera1.fx", get("Camera.fx", 517.3))),
+        fy=float(get("Camera1.fy", get("Camera.fy", 516.5))),
+        cx=float(get("Camera1.cx", get("Camera.cx", 318.6))),
+        cy=float(get("Camera1.cy", get("Camera.cy", 255.3))),
+        k1=float(get("Camera1.k1", get("Camera.k1", 0.0))),
+        k2=float(get("Camera1.k2", get("Camera.k2", 0.0))),
+        p1=float(get("Camera1.p1", get("Camera.p1", 0.0))),
+        p2=float(get("Camera1.p2", get("Camera.p2", 0.0))),
+        k3=float(get("Camera1.k3", get("Camera.k3", 0.0))),
+        fps=float(get("Camera.fps", 30.0)),
+    )
+    orb = OrbConfig(
+        n_features=int(get("ORBextractor.nFeatures", 1250)),
+        scale_factor=float(get("ORBextractor.scaleFactor", 1.2)),
+        n_levels=int(get("ORBextractor.nLevels", 8)),
+        ini_th_fast=int(get("ORBextractor.iniThFAST", 20)),
+        min_th_fast=int(get("ORBextractor.minThFAST", 7)),
+    )
+    return EngineConfig(camera=cam, orb=orb)
+
+
+def tum_fr1_config() -> EngineConfig:
+    """TUM fr1 intrinsics (freiburg1: 517.3 516.5 318.6 255.3,
+    distortion 0.2624 -0.9531 -0.0054 0.0026 1.1633)."""
+    cam = CameraConfig(
+        width=640, height=480,
+        fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989,
+        k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628, k3=1.163314,
+        fps=30.0,
+    )
+    return EngineConfig(camera=cam)

@@ -34,7 +34,13 @@ def solve3x3_batch(M: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def triangulate_batch(P1, P2, x1, x2):
-    """P1, P2: (…,3,4); x1, x2: (…,N,2) pixels -> (…,N,3) points."""
+    """P1, P2: (…,3,4); x1, x2: (…,N,2) pixels -> (…,N,3) points, of
+    x1's dtype. The normal equations square the condition of a
+    low-parallax pair, so they are formed and solved in float64: in
+    float32 the card's and the CPU's matmuls rounded such points up to
+    1e-3 m apart."""
+    dt = x1.dtype
+    P1, P2, x1, x2 = (v.double() for v in (P1, P2, x1, x2))
     rows = []
     for P, x in ((P1, x1), (P2, x2)):
         r2 = P[..., 2, :].unsqueeze(-2)
@@ -46,4 +52,4 @@ def triangulate_batch(P1, P2, x1, x2):
     MtM = M.transpose(-1, -2) @ M \
         + 1e-9 * torch.eye(3, dtype=A.dtype, device=A.device)
     Mtb = (M * b[..., None]).sum(-2)
-    return solve3x3_batch(MtM, Mtb)
+    return solve3x3_batch(MtM, Mtb).to(dt)

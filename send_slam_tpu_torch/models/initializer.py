@@ -96,9 +96,11 @@ def _decompose_essential(E):
 def _score_motion(R, t, K, x1, x2, valid, reproj_th2, min_parallax_cos):
     """Triangulate every match under (R, t) (…,3,3)/(…,3); x (…,N,2),
     valid (…,N), all broadcast. Returns (X, good, cos_par, err)."""
-    eye34 = torch.eye(3, 4, dtype=K.dtype, device=K.device)
-    P1 = K @ eye34
-    P2 = K @ torch.cat([R, t[..., None]], -1)
+    # P in float64, as the triangulation: a float32 product rounds apart
+    # on the card and the CPU, and a low-parallax point amplifies that.
+    Kd = K.double()
+    P1 = Kd @ torch.eye(3, 4, dtype=Kd.dtype, device=K.device)
+    P2 = Kd @ torch.cat([R, t[..., None]], -1).double()
     X = triangulate_batch(P1, P2, x1, x2)
     z1 = X[..., 2]
     z2 = (X @ R.transpose(-1, -2) + t[..., None, :])[..., 2]
@@ -106,7 +108,7 @@ def _score_motion(R, t, K, x1, x2, valid, reproj_th2, min_parallax_cos):
     Xh = torch.cat([X, torch.ones_like(X[..., :1])], -1)
 
     def reproj(P, x):
-        h = Xh @ P.transpose(-1, -2)
+        h = Xh @ P.to(Xh.dtype).transpose(-1, -2)
         hz = h[..., 2:3]
         uv = h[..., :2] / torch.where(hz.abs() < 1e-9,
                                       torch.full_like(hz, 1e-9), hz)

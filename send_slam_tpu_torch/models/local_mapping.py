@@ -74,8 +74,11 @@ def create_new_landmarks(m: MapState, kf_new, kf_ref, K, cfg: TrackingConfig,
     N = uva.shape[0]
     idx_b = torch.clamp(match.idx, 0, N - 1)
     x1, x2 = uva, uvb[idx_b]
-    P1 = K @ torch.cat([Ra, ta[:, None]], 1)
-    P2 = K @ torch.cat([Rb, tb[:, None]], 1)
+    # In float64, as the triangulation: a float32 product rounds apart
+    # on the card and the CPU, and a low-parallax point amplifies that.
+    Kd = K.double()
+    P1 = Kd @ torch.cat([Ra, ta[:, None]], 1).double()
+    P2 = Kd @ torch.cat([Rb, tb[:, None]], 1).double()
     X = triangulate_batch(P1, P2, x1, x2)
     pa = X @ Ra.T + ta
     pb = X @ Rb.T + tb

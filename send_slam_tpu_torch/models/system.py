@@ -153,13 +153,6 @@ class TrackOutput(NamedTuple):
     backfill: tuple = ()
 
 
-def _check_config(cfg: EngineConfig) -> None:
-    if abs(cfg.orb.scale_factor - 1.2) > 1e-9:
-        raise NotImplementedError(
-            "send_slam_tpu_torch does not port pyramid scales other than "
-            "1.2 yet (scale_factor != 1.2)")
-
-
 def _stack_frames(frames: List[Frame]) -> Frame:
     return Frame(
         feat=type(frames[0].feat)(*(torch.stack([getattr(f.feat, n)
@@ -178,7 +171,6 @@ class System:
     """Monocular SLAM engine on the card (or the CPU with device="cpu")."""
 
     def __init__(self, config: EngineConfig, device=None):
-        _check_config(config)
         self.cfg = config
         self.device = resolve_device(device)
         cam = config.camera

@@ -20,8 +20,8 @@ CLI:
 The port's own copy of ``send_slam_tpu/server/app.py``. The engine runs
 on ``device`` (default the card; raises without one unless given
 ``device="cpu"``), which ``--device`` sets in place of the JAX module's
-``JAX_PLATFORMS`` handling. The web panel serves ``/``, ``/client`` and
-``/metrics`` (``/panel`` waits for the calibration slice).
+``JAX_PLATFORMS`` handling; ``/panel`` uploads are calibrated there
+too.
 """
 
 from __future__ import annotations
@@ -109,7 +109,8 @@ class Application:
             self.web = WebPanel(
                 self.bus, port=self.config.server.http_port,
                 metrics_fn=lambda: (self.engine.stats()
-                                    if self.engine else {}))
+                                    if self.engine else {}),
+                device=self.device)
             await self.web.start()
         if self.run_tcp:
             self.tcp = TcpFrameServer(self.bus,

@@ -11,7 +11,8 @@ only what they use:
   the client's key and the RFC's GUID), then unmasked server text and
   binary frames with 7-, 16- and 64-bit lengths, never fragmented;
   masked client frames read, a ping answered with a pong, a close
-  answered with a close, inbound data frames handed to the route.
+  answered with a close, inbound messages handed to the route whole (a
+  fragmented message's frames joined, as ``aiohttp`` joins them).
 
 No TLS, no extensions (an offered ``permessage-deflate`` is declined by
 leaving it out of the answer), no keep-alive, no fragmented sends.
@@ -30,7 +31,7 @@ from typing import Awaitable, Callable, Dict, NamedTuple, Optional, Set
 log = logging.getLogger(__name__)
 
 WS_GUID = b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
-MAX_WS_FRAME = 16 * 1024 * 1024     # inbound guard; the routes read none
+MAX_WS_FRAME = 16 * 1024 * 1024     # inbound guard on a frame and a message
 
 OP_CONT, OP_TEXT, OP_BINARY = 0x0, 0x1, 0x2
 OP_CLOSE, OP_PING, OP_PONG = 0x8, 0x9, 0xA
@@ -66,8 +67,7 @@ def _unmask(data: bytes, mask: bytes) -> bytes:
 
 
 async def read_ws_frame(reader: asyncio.StreamReader):
-    """One frame from ``reader``: (opcode, payload), unmasked. A
-    fragment's continuation comes as its own frame (opcode 0)."""
+    """One frame from ``reader``: (fin, opcode, payload), unmasked."""
     b0, b1 = await reader.readexactly(2)
     n = b1 & 0x7F
     if n == 126:
@@ -80,7 +80,7 @@ async def read_ws_frame(reader: asyncio.StreamReader):
     payload = await reader.readexactly(n)
     if mask is not None:
         payload = _unmask(payload, mask)
-    return b0 & 0x0F, payload
+    return bool(b0 & 0x80), b0 & 0x0F, payload
 
 
 class Response(NamedTuple):
@@ -140,24 +140,43 @@ class WebSocket:
             self.closed = True
 
     async def receive(self):
-        """The next inbound data frame as (opcode, payload); None once
-        the client closed or the connection ended. Pings are answered
-        and a close is echoed on the way."""
+        """The next inbound message as (opcode, payload), a fragmented
+        one joined (its first frame's opcode, then continuation frames
+        up to the final one; pings and pongs may come between them); None
+        once the client closed or the connection ended. Pings are
+        answered, pongs ignored and a close echoed on the way. A
+        continuation without a message to
+        continue, a new message inside one or a message over
+        MAX_WS_FRAME bytes closes the connection (1002, 1002, 1009)."""
+        first, parts, size = None, [], 0
         while not self.closed:
             try:
-                op, payload = await read_ws_frame(self._reader)
+                fin, op, payload = await read_ws_frame(self._reader)
             except (asyncio.IncompleteReadError, ConnectionError,
                     ValueError):
                 self.closed = True
                 return None
             if op == OP_PING:
                 await self._send(OP_PONG, payload)
-            elif op == OP_CLOSE:
+                continue
+            if op == OP_PONG:
+                continue
+            if op == OP_CLOSE:
                 await self.close(struct.unpack(">H", payload[:2])[0]
                                  if len(payload) >= 2 else 1000)
                 return None
-            elif op in (OP_CONT, OP_TEXT, OP_BINARY):
-                return op, payload
+            if (op == OP_CONT) != (first is not None) \
+                    or op not in (OP_CONT, OP_TEXT, OP_BINARY):
+                await self.close(1002)
+                return None
+            first = op if first is None else first
+            parts.append(payload)
+            size += len(payload)
+            if size > MAX_WS_FRAME:
+                await self.close(1009)
+                return None
+            if fin:
+                return first, b"".join(parts)
         return None
 
     def __aiter__(self):

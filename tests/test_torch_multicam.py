@@ -591,6 +591,73 @@ def test_merge_imports_survive_the_capacity_step(jax_run):
     assert (got["maps"]["lm_ref_kf"][lane][imported][kept] == -1).all()
 
 
+def test_two_entry_mesh_moves_each_lane_and_brings_it_home(jax_run,
+                                                          monkeypatch):
+    """The block moves of a two-entry mesh (ROADMAP C.3), on the CPU:
+    the entries are two distinct device objects, and a spy on the move
+    helper records which entry each move targets. From a carried state
+    whose lanes are in different modes, lane 1's every lane and map field
+    moves to entry 1 and nowhere else, every result comes back to entry
+    0 (the state's own device), and the step and the ring merge equal a
+    one-entry mesh's bit for bit."""
+    from send_slam_tpu_torch.parallel.map_merge import (
+        merge_noise, multicam_merge_step,
+    )
+    jl, steps = jax_run
+    st = next(x for x in steps if len(set(x["before"]["mode"])) > 1)
+    draws = jl.draws(st["keys"], st["before"], st["imgs"], st["tss"])
+    two = tmesh.make_mesh(2, devices=["cpu", "cpu"])
+    devs = two.flat_devices()
+    assert devs[0] is not devs[1] and len(two.lane_blocks(N_LANES)) == 2
+    calls = []
+    real = tmc._to
+
+    def spy(x, device):
+        calls.append(next((i for i, d in enumerate(devs) if d is device),
+                          None))
+        return real(x, device)
+
+    monkeypatch.setattr(tmc, "_to", spy)
+    out = {}
+    for name, mesh in (("one", tmesh.make_mesh(1, devices=["cpu"])),
+                       ("two", two)):
+        calls.clear()
+        step = tmc.multicam_slam_step(jl.cfg_t, mesh,
+                                      loop_closing=jl.loop_closing)
+        state = tmc.multicam_state_from_numpy(st["before"], device="cpu")
+        new, summary = step(state, st["imgs"], st["tss"], draws=draws)
+        step_calls = list(calls)
+        calls.clear()
+        merged, ok, n_imp = multicam_merge_step(jl.cfg_t, mesh)(
+            new.maps, merge_noise(N_LANES, jl.cfg_t.map.max_landmarks,
+                                  seed=2))
+        out[name] = (tmc.multicam_state_to_numpy(new), summary.numpy(),
+                     {f: getattr(merged, f).numpy()
+                      for f in tmc._MAP_FIELDS},
+                     ok.numpy(), n_imp.numpy(), step_calls, list(calls))
+    n_lane, n_map = len(tmc._LANE_FIELDS), len(tmc._MAP_FIELDS)
+    step_calls, merge_calls = out["two"][5], out["two"][6]
+    # The step: lane 0's fields to entry 0, lane 1's to entry 1, then
+    # every stacked result (maps, lane fields, summary rows) to entry 0.
+    assert step_calls == [0] * (n_lane + n_map) + [1] * (n_lane + n_map) \
+        + [0] * (N_LANES * (n_map + n_lane) + N_LANES)
+    # The merge: each lane's map to its entry, the merged maps home.
+    assert merge_calls == [0] * n_map + [1] * n_map + [0] * N_LANES * n_map
+    (sa, ra, ma, oka, na, _, _), (sb, rb, mb, okb, nb, _, _) = \
+        out["one"], out["two"]
+    np.testing.assert_array_equal(ra, rb)
+    for f in sa:
+        if f == "maps":
+            for k in sa["maps"]:
+                np.testing.assert_array_equal(sa["maps"][k], sb["maps"][k])
+        else:
+            np.testing.assert_array_equal(sa[f], sb[f])
+    for k in ma:
+        np.testing.assert_array_equal(ma[k], mb[k])
+    np.testing.assert_array_equal(oka, okb)
+    np.testing.assert_array_equal(na, nb)
+
+
 def test_state_round_trip(jax_run):
     _, steps = jax_run
     d = steps[-1]["after"]

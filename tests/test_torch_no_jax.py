@@ -1,6 +1,8 @@
 """The port and chip_smoke.py import nothing of JAX or the JAX package,
-nor ``msgpack``, ``aiohttp`` or ``cv2`` (the card's machine has none of
-them), and the port never falls back to the CPU on its own."""
+nor, when a module loads, ``msgpack``, ``aiohttp``, ``cv2``, ``PIL`` or
+``yaml`` (the JPEG codec and the settings loader import ``PIL`` and
+``yaml`` when called), and the port never falls back to the CPU on its
+own."""
 
 import os
 import subprocess
@@ -16,7 +18,7 @@ _CHILD = textwrap.dedent("""
     import numpy as np
 
     BLOCKED = ("jax", "jaxlib", "send_slam_tpu", "msgpack", "aiohttp",
-               "cv2")
+               "cv2", "PIL", "yaml")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -37,6 +39,10 @@ _CHILD = textwrap.dedent("""
                  "send_slam_tpu_torch.io.ppm",
                  "send_slam_tpu_torch.utils.profiling",
                  "send_slam_tpu_torch.calib.io",
+                 "send_slam_tpu_torch.calib.checkerboard",
+                 "send_slam_tpu_torch.calib.zhang",
+                 "send_slam_tpu_torch.calib.pipeline",
+                 "send_slam_tpu_torch.io.jpeg",
                  "send_slam_tpu_torch.parallel",
                  "send_slam_tpu_torch.parallel.mesh",
                  "send_slam_tpu_torch.parallel.multicam",
@@ -139,8 +145,8 @@ def test_server_mains_default_to_the_card():
 
 def test_system_refuses_unported_features(tmp_path):
     """The JAX package's default configuration constructs, loop closing
-    on, and so do BA windows up to the keyframe capacity; only other
-    pyramid scales are refused at construction, and ``slice_config``
+    on, and so do BA windows up to the keyframe capacity and other
+    pyramid scales (1.3), and ``slice_config``
     (which turned loop closing off) is gone. Under the default
     configuration nothing raises at the freeze (the map is kept in the
     atlas), at the keyframe capacity (the table is compacted) or at map
@@ -154,9 +160,9 @@ def test_system_refuses_unported_features(tmp_path):
     assert not hasattr(tsys, "slice_config")
     tsys.System(cfg.replace(map=MapConfig(max_keyframes=96, ba_window=96)),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="scale_factor"):
-        tsys.System(cfg.replace(orb=OrbConfig(scale_factor=1.3)),
-                    device="cpu")
+    s13 = tsys.System(cfg.replace(orb=OrbConfig(scale_factor=1.3)),
+                      device="cpu")
+    assert s13.cfg.orb.scale_factor == 1.3
 
     assert cfg.tracking.max_atlas_maps > 0
     s.state = tsys.TRACKING_OK

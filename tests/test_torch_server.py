@@ -281,6 +281,191 @@ class TestPoseStreams:
             == "s3pPLMBiTxaQ9kYGzzhZRbK+xOo="
 
 
+async def panel_exchange(start, bus_mod, prod_mod, events, texts,
+                         fragments=1):
+    """Open ``/panel`` with chip_smoke.py's raw client: publish
+    ``events`` on CAMERA and read one binary message each, then send each
+    of ``texts`` (in ``fragments`` frames, a ping between the first two)
+    and read the text reply, if any, of each (None when there is none
+    within 2 s past a calibration's). Returns (binary messages, replies,
+    CALIBRATION messages published)."""
+    bus = bus_mod.Bus(maxsize=16)
+    calib_q = bus.subscribe(bus_mod.CALIBRATION)
+    server, port = await start(bus)
+    try:
+        ws = await chip_smoke.WsClient.connect(port, "/panel")
+        await wait_subscribed(bus, bus_mod.CAMERA, 1)
+        frames = []
+        for ev in events:
+            bus.publish(bus_mod.CAMERA, ev)
+            op, data = await asyncio.wait_for(ws.recv(), 10)
+            assert op == 0x2
+            frames.append(data)
+        replies = []
+        for text in texts:
+            data = text.encode()
+            step = -(-len(data) // fragments)
+            parts = [data[i:i + step] for i in range(0, len(data), step)]
+            for i, part in enumerate(parts):
+                await ws.send(0x0 if i else 0x1, part,
+                              fin=i == len(parts) - 1)
+                if i == 0 and len(parts) > 1:
+                    await ws.send(0x9, b"between")
+            reply = None
+            try:
+                while reply is None:
+                    op, got = await asyncio.wait_for(ws.recv(), 120 if
+                                                     "calibrationFrames"
+                                                     in text else 2)
+                    if op == 0x1:
+                        reply = got.decode()
+            except asyncio.TimeoutError:
+                pass
+            replies.append(reply)
+        assert await ws.close() == 1000
+        for _ in range(200):        # the route unsubscribes on close
+            if not bus._subs.get(bus_mod.CAMERA):
+                break
+            await asyncio.sleep(0.01)
+        assert not bus._subs.get(bus_mod.CAMERA)
+        published = []
+        while not calib_q.empty():
+            published.append(calib_q.get_nowait())
+        return frames, replies, published
+    finally:
+        await server.stop()
+
+
+async def torch_cpu_panel(bus):
+    """The port's panel, calibrating on the CPU."""
+    panel = tweb.WebPanel(bus, host="127.0.0.1", port=0, device="cpu")
+    await panel.start()
+    return panel, panel.bound_port
+
+
+def board_upload(n=12):
+    """tests/test_calibration.py's board views as the browser uploads
+    them: JPEG data URLs."""
+    import base64
+    import cv2
+    from test_calibration import board_views
+    urls = []
+    for _, _, img in board_views(n):
+        ok, buf = cv2.imencode(".jpg", np.round(img).astype(np.uint8))
+        urls.append("data:image/jpeg;base64,"
+                    + base64.b64encode(buf.tobytes()).decode())
+    return urls
+
+
+class TestPanel:
+    def test_jpeg_frames_down_as_jax(self):
+        """Each CAMERA frame comes down as a JPEG that cv2 decodes to the
+        JAX panel's picture; then a bad upload is answered "ERROR"."""
+        import cv2
+        rng = np.random.default_rng(5)
+        frames = [rng.integers(0, 255, (48, 64, 3), dtype=np.uint8)
+                  for _ in range(3)]
+        out = {}
+        for name, start, bus_mod, prod_mod in (
+                ("jax", jax_panel, jbus, jprod),
+                ("torch", torch_cpu_panel, tbus, tprod)):
+            evs = [prod_mod.FrameEvent(frame=f, timestamp=1.0 + k, fps=30.0,
+                                       camera_id=0)
+                   for k, f in enumerate(frames)]
+            out[name] = run(panel_exchange(start, bus_mod, prod_mod, evs,
+                                           ["not json", '{"x": 1}',
+                                            '{"calibrationFrames": ["!!!"]}']),
+                            timeout=180)
+        for (jf, jr, jp), (tf, tr, tp) in [(out["jax"], out["torch"])]:
+            assert len(jf) == len(tf) == 3
+            for a, b, f in zip(jf, tf, frames):
+                da = cv2.imdecode(np.frombuffer(a, np.uint8), cv2.IMREAD_COLOR)
+                db = cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR)
+                assert da.shape == db.shape == f.shape
+                assert np.abs(da.astype(int) - db).max() <= 2
+            assert jr == tr == ["ERROR", None, "ERROR"]
+            assert jp == tp == []
+
+    def test_calibration_upload_fragmented(self, tmp_path, monkeypatch):
+        """A fragmented upload of the rendered boards (a ping between its
+        frames; aiohttp joins them for the JAX panel, the port's server
+        joins them too): "OK", the reference JSON written, and one
+        CALIBRATION publish, with the JAX panel's camera matrix."""
+        from send_slam_tpu_torch.calib.io import ENV_VAR, load_from_file
+        upload = json.dumps({"calibrationFrames": board_upload()})
+        got = {}
+        for name, start, bus_mod, prod_mod in (
+                ("jax", jax_panel, jbus, jprod),
+                ("torch", torch_cpu_panel, tbus, tprod)):
+            path = tmp_path / name / "latest.json"
+            monkeypatch.setenv(ENV_VAR, str(path))
+            _, replies, published = run(panel_exchange(
+                start, bus_mod, prod_mod, [], [upload], fragments=3),
+                timeout=240)
+            assert replies == ["OK"]
+            assert len(published) == 1
+            saved = json.loads(path.read_text())
+            assert saved["camera_matrix"]["shape"] == [3, 3]
+            assert saved["distortion_coeffs"]["shape"] == [1, 5]
+            got[name] = (load_from_file(str(path)), published[0])
+        (js, jp), (ts_, tp) = got["jax"], got["torch"]
+        K_j, K_t = js["camera_matrix"], ts_["camera_matrix"]
+        assert np.abs(K_t - K_j).max() / np.abs(K_j).max() <= 1e-4
+        assert ts_["successful_frames"] == js["successful_frames"] >= 10
+        np.testing.assert_allclose(tp["camera_matrix"], K_t, rtol=1e-12)
+
+    def test_pongs_ignored_as_jax(self):
+        """A pong before a message and pongs between its fragments
+        (RFC 6455 section 5.5.3 allows both) are ignored, as aiohttp
+        ignores them for the JAX panel: the joined message is answered
+        and the connection stays open."""
+        async def go(start, bus_mod):
+            bus = bus_mod.Bus()
+            server, port = await start(bus)
+            try:
+                ws = await chip_smoke.WsClient.connect(port, "/panel")
+                await ws.send(0xA, b"heartbeat")
+                await ws.send(0x1, b"not ", fin=False)
+                await ws.send(0xA, b"")
+                await ws.send(0x0, b"js", fin=False)
+                await ws.send(0xA, b"again")
+                await ws.send(0x0, b"on", fin=True)
+                op, data = await asyncio.wait_for(ws.recv(), 5)
+                code = await ws.close()
+                return op, data, code
+            finally:
+                await server.stop()
+
+        want = (0x1, b"ERROR", 1000)
+        assert run(go(jax_panel, jbus)) == want
+        assert run(go(torch_cpu_panel, tbus)) == want
+
+    def test_fragment_protocol_errors_close(self, monkeypatch):
+        """A continuation without a message closes with 1002, a message
+        over the size guard with 1009."""
+        async def go(frames):
+            bus = tbus.Bus()
+            panel, port = await torch_cpu_panel(bus)
+            try:
+                ws = await chip_smoke.WsClient.connect(port, "/panel")
+                for op, data, fin in frames:
+                    await ws.send(op, data, fin=fin)
+                while True:
+                    op, data = await asyncio.wait_for(ws.recv(), 5)
+                    if op == 0x8:
+                        return int.from_bytes(data[:2], "big")
+            finally:
+                await panel.stop()
+
+        assert run(go([(0x0, b"stray", True)])) == 1002
+        assert run(go([(0x1, b"a", False), (0xA, b"", True),
+                       (0x1, b"b", True)])) == 1002
+        assert run(go([(0x1, b"a", False), (0x1, b"b", True)])) == 1002
+        monkeypatch.setattr(thttp, "MAX_WS_FRAME", 100)
+        assert run(go([(0x1, b"x" * 60, False),
+                       (0x0, b"y" * 60, True)])) == 1009
+
+
 class TestHttpRoutes:
     def test_metrics_and_index_equal_jax(self):
         stats = {"frames": 3, "tracked": 2, "tracking_state": 2,
