@@ -14,16 +14,18 @@ Phases, each printing one JSON line:
    a ragged 100x128 and a 7x9 image, a batch of 3; thresholds 7 and 20;
    raw and NMS maps), then one launch over the whole 8-level pyramid,
    one over a batch of 8 such pyramids, each lanes path's own launch at
-   its batch, levels and data (phases 15 and 17), and one launch over
+   its batch, levels and data (phases 15 and 17), one launch over
    the 8-level pyramid of a textured frame at scales 1.3 and 1.5 (odd
-   level shapes: 369x492, 284x379, ... at 1.3);
+   level shapes: 369x492, 284x379, ... at 1.3), and one over a 752x480
+   frame's 8 levels at 1.2 (EuRoC's width: 480x752, 400x625, ...,
+   125x200);
 3. kernel_times: per 640x480 frame, one launch over the 8 levels (device
    time queued behind a spin kernel, and the unqueued launch interval),
    8 one-level launches of the same kernel (both times), the plain
    version, batches of 8 and of 2 pyramids (the kernel and the plain
    version), scale_path's launch (8 levels at 1.3; the kernel and the
-   plain version), and the bytes and operations bounds (the operations
-   counted on the timed inputs);
+   plain version), dataset_euroc's (8 levels of 752x480), and the bytes
+   and operations bounds (the operations counted on the timed inputs);
 4. frontend_check: make_frame on the card against make_frame on the CPU
    (the plain path) on one 640x480 frame;
 5. main_path: System.track_monocular at the flagship configuration
@@ -169,21 +171,48 @@ Phases, each printing one JSON line:
 13a. scale_path: phase 5's 90 frames at OrbConfig(scale_factor=1.3),
    everything else flagship: one FAST launch per make_frame over the odd
    level shapes, at least 30 of 90 tracked as bench.py counts them, ATE;
+18. dataset_tum: phase 5's 90 frames written as a TUM RGB-D tree (8-bit
+   RGB PNGs by this script's own writer, their rows in all five filters;
+   epoch stamps; ground truth at twice the frame rate, 3 ms late), read
+   back with the port's open_sequence and PNG reader (each frame equal
+   to the frame written, each stamp within 1e-6 s), tracked on the card
+   at the flagship configuration as bench.py counts (at least 30 of 90),
+   ATE at most 0.25 m against the ground truth parsed from disk, one
+   FAST launch per make_frame; the PNG decode ms per frame;
+19. dataset_euroc: the bench arc at EuRoC cam0's 752x480 and focal
+   lengths as a mav0 tree (8-bit gray PNGs, ns stamps, the 17-column
+   ground truth), the same checks, every FAST launch of the run held
+   against the plain version afterwards;
+20. textured_path: tests/test_stress_e2e.py's flagship lap, the textured
+   room with every nuisance knob (noise, gain drift, blur, vignetting,
+   an occluder, exposure steps, rolling shutter, foreground boxes), 120
+   frames of one lap at MapConfig(64, 8192, ba_window=8): more than 90
+   tracked, ATE under 0.15 m, fewer than 60 keyframes, one FAST launch
+   per make_frame, ms per tracked frame;
+21. dataset_example: ``examples/run_dataset_torch.py`` over 30 frames of
+   the TUM tree in a subprocess started once the tree is written, as a
+   user runs it, beside phases 18-20: exit code 0, its frames line, an
+   ATE line, one TUM line per keyframe it reports (no accuracy bar: it
+   imposes FR1's distorted intrinsics on undistorted frames); then
+   offline_vs_main: phase 18's run against phase 5's (tracked, the
+   frames only one emits, poses emitted twice; keyframes equal and
+   positions of one frame within 1e-4 m) and textured_path's frame time
+   beside the main path's.
 
-The phases run in the order 1-5, 5a, 6, 5b, 7-17. Phases 12, 13 and 13a
+The phases run in the order 1-5, 5a, 6, 5b, 7-21. Phases 12, 13 and 13a
 run in a second process (``chip_smoke.py --sessions DIR``), phases 15
-and 16 in a third (``chip_smoke.py --lanes DIR``) and phases 17, 17a and
-17b in a fourth (``chip_smoke.py --ring DIR``), all started after phase
-5b and running
-beside phases 7-11, so the times of phases 7-17 are taken beside the
-other processes (run ``--sessions DIR``, ``--lanes DIR`` or ``--ring
-DIR`` alone for their phases by themselves); their lines are printed
-after phase 11's and phase 14's. Then the kernels summary line and,
-last, {"ok": true, "device": ...}.
+and 16 in a third (``chip_smoke.py --lanes DIR``), phases 17, 17a and
+17b in a fourth (``chip_smoke.py --ring DIR``) and phases 18-21 in a
+fifth (``chip_smoke.py --offline DIR``), all started after phase 5b and
+running beside phases 7-11, so the times of phases 7-21 are taken beside
+the other processes (run ``--sessions DIR``, ``--lanes DIR``, ``--ring
+DIR`` or ``--offline DIR`` alone for their phases by themselves); their
+lines are printed after phase 11's and phase 14's. Then the kernels
+summary line and, last, {"ok": true, "device": ...}.
 Any failed check exits non-zero; a watchdog ends the run after 360 s.
 It imports nothing of JAX or of the JAX package, nor ``msgpack``,
 ``aiohttp`` or ``cv2``; the port's JPEG codec imports ``PIL`` when it is
-called.
+called, and PNG is read by the port's own reader.
 """
 
 from __future__ import annotations
@@ -256,6 +285,31 @@ MIXED_DEVICES = ("cuda", "cpu")
 # kernel_check's odd level shapes (1.3 and 1.5).
 SCALE_PATH_SCALE = 1.3
 ODD_SCALES = (1.3, 1.5)
+# The offline-evaluation phases (a fifth process): the main path's frames
+# as a TUM tree (8-bit RGB PNGs, epoch stamps from TUM_T0, ground truth at
+# twice the frame rate TUM_GT_OFFSET s late, as tests/test_dataset_e2e.py
+# writes them), the bench arc at EuRoC cam0's 752x480 and focal lengths as
+# a mav0 tree (8-bit gray PNGs, ns stamps from EUROC_T0), both tracked at
+# the flagship ORB and map with an ATE of at most DATASET_MAX_ATE m
+# against the ground truth parsed from disk (test_slam_from_disk's bar);
+# examples/run_dataset_torch.py over EXAMPLE_FRAMES frames of the TUM
+# tree; and tests/test_stress_e2e.py's flagship lap on the textured room.
+TUM_T0, TUM_GT_OFFSET = 1305031102.0, 0.003
+EUROC_T0 = 1403636579.0
+EUROC_W, EUROC_H, EUROC_FX, EUROC_FY = 752, 480, 458.654, 457.296
+DATASET_MAX_ATE = 0.25
+TUM_FILTERS = (0, 1, 2, 3, 4)   # PNG row filters, cycled (every kind)
+EUROC_FILTERS = (0, 1, 2)       # no Average or Paeth rows
+EXAMPLE_FRAMES = 30
+TEXTURED_FRAMES, TEXTURED_MIN_OK, TEXTURED_MAX_ATE = 120, 90, 0.15
+TEXTURED_KNOBS = dict(noise_sigma=2.5, gain_jitter=0.03, blur_sigma=0.5,
+                      vignette=0.25, occluder=0.3, exposure_step_every=30,
+                      exposure_step=0.18, rolling_shutter=0.5, rs_bands=8,
+                      fg_boxes=2)
+OFFLINE_THREADS = 2             # the offline process's CPU threads
+# dataset_tum's positions against the main path's, frame for frame: the
+# same images, so the same trajectory up to the stamps' rounding.
+OFFLINE_POS_TOL = 1e-4
 # The calibration phase: tests/test_calibration.py's boards (a 9x6
 # inner-corner pattern of 25 mm squares) in CALIB_VIEWS views at 640x480
 # under its camera; card and CPU corners within CALIB_CORNER_TOL px, K
@@ -295,11 +349,16 @@ _CHILDREN = []                  # processes this run started
 
 
 def _stop_children():
-    """Kill every child still running, then reap each for at most 10 s
-    (a process killed inside a CUDA call may take a while to go)."""
+    """Kill every child still running, with the processes it started
+    (start_child makes each the leader of a process group), then reap
+    each for at most 10 s (a process killed inside a CUDA call may take a
+    while to go)."""
     running = [c for c in _CHILDREN if c.poll() is None]
     for child in running:
-        child.kill()
+        try:
+            os.killpg(child.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            child.kill()
     for child in running:
         try:
             child.wait(timeout=10)
@@ -491,6 +550,19 @@ def kernel_check(torch, fast_cuda, fast_ops, level_shapes):
                 equal_or_fail(nms, fast_ops.nms3x3(ref), f"nms, {what}")
                 max_err = max(max_err, float((raw - ref).abs().max()))
             cases += 1
+    # dataset_euroc's pyramid: 752x480 at 1.2 (480x752, 400x625, ...,
+    # 125x200), one launch over every level, raw and with NMS.
+    euroc = build_pyramid(torch.from_numpy(texture(EUROC_H, EUROC_W,
+                                                   seed=80)).to(dev), 8, 1.2)
+    for th in (7.0, 20.0):
+        got = fast_cuda.fast_score_levels_cuda(euroc, th, with_nms=True)
+        for lv, (raw, nms) in zip(euroc, got):
+            ref = fast_ops.fast_score_map(lv, th)
+            what = f"752x480 level {tuple(lv.shape)} th={th}"
+            equal_or_fail(raw, ref, f"raw, {what}")
+            equal_or_fail(nms, fast_ops.nms3x3(ref), f"nms, {what}")
+            max_err = max(max_err, float((raw - ref).abs().max()))
+        cases += 1
     # Each lanes path's launch at its own batch, levels and data.
     lanes_err = 0.0
     for name, (levels, th) in lanes_launch_inputs(torch).items():
@@ -500,7 +572,8 @@ def kernel_check(torch, fast_cuda, fast_ops, level_shapes):
         cases += 1
     torch.cuda.synchronize()
     return dict(cases=cases, comparison="torch.equal", max_abs_err=max_err,
-                lanes_max_abs_err=lanes_err, odd_scale_level_shapes=odd)
+                lanes_max_abs_err=lanes_err, odd_scale_level_shapes=odd,
+                euroc_level_shapes=[list(lv.shape) for lv in euroc])
 
 
 def hold_launch(fast_ops, levels, th, got, what):
@@ -650,6 +723,13 @@ def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
         odd, 7.0, with_nms=True), 50)
     odd_plain_ms = cuda_ms(lambda: plain_levels(odd), 5, repeats=3)
     odd_bound = fast_bound(*fast_work(torch, fast_ops, odd, 7.0))
+    # dataset_euroc's launch: a 752x480 frame's 8 levels at 1.2.
+    euroc = build_pyramid(torch.from_numpy(texture(EUROC_H, EUROC_W,
+                                                   seed=80)).to(dev), 8, 1.2)
+    euroc_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
+        euroc, 7.0, with_nms=True), 50)
+    euroc_plain_ms = cuda_ms(lambda: plain_levels(euroc), 5, repeats=3)
+    euroc_bound = fast_bound(*fast_work(torch, fast_ops, euroc, 7.0))
     return dict(
         unit="per 640x480 frame: 8 pyramid levels, raw + NMS at th 7",
         tile=[fast_cuda.TILE_W, fast_cuda.TILE_H],
@@ -663,7 +743,10 @@ def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
         pair=dict(lanes=2, levels=8, ms=pair_ms, plain_ms=pair_plain_ms,
                   **pair_bound),
         scale_1_3=dict(levels=[list(lv.shape) for lv in odd], ms=odd_ms,
-                       plain_ms=odd_plain_ms, **odd_bound))
+                       plain_ms=odd_plain_ms, **odd_bound),
+        euroc_752x480=dict(levels=[list(lv.shape) for lv in euroc],
+                           ms=euroc_ms, plain_ms=euroc_plain_ms,
+                           **euroc_bound))
 
 
 def frontend_check(torch, make_frame, cfg, img):
@@ -1638,7 +1721,7 @@ def start_child(flag: str, outdir: str):
             open(os.path.join(outdir, name + ".err"), "w") as err:
         child = subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), flag, outdir],
-            stdout=out, stderr=err)
+            stdout=out, stderr=err, process_group=0)
     _CHILDREN.append(child)
     return child
 
@@ -1934,7 +2017,8 @@ def launch_record(fast_cuda):
     """Record each FAST launch made inside the block as (levels,
     threshold, outputs); the tensors are held, not copied (nothing
     writes into a launch's inputs or outputs). The launch counter is the
-    wrapper's own."""
+    wrapper's own. Every launch is a batched one (a System's make_frame
+    is a batch of one)."""
     real = fast_cuda.fast_score_levels_cuda
     launches = []
 
@@ -1942,7 +2026,7 @@ def launch_record(fast_cuda):
         levels = list(levels)
         out = real(levels, threshold, with_nms)
         if not with_nms or levels[0].dim() != 3:
-            fail("a lanes launch was not a batched launch with NMS")
+            fail("a recorded launch was not a batched launch with NMS")
         launches.append((levels, threshold, out))
         return out
 
@@ -2562,6 +2646,356 @@ def scale_path(torch, System, fast_cuda):
         fail(f"scale_path: tracked {tracked} of {N_FRAMES} (< {MIN_TRACKED})"
              f" or ATE {ate}")
     return res
+
+
+def png_bytes(img: np.ndarray, filters=(0,)) -> bytes:
+    """An 8-bit PNG of (H, W) gray or (H, W, 3) RGB, its rows filtered
+    with ``filters`` in turn (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth),
+    one IDAT. This script's own writer: the port reads PNG but writes
+    none."""
+    import struct
+    import zlib
+    img = np.asarray(img, np.uint8)
+    h = img.shape[0]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(h, -1).astype(np.int32)
+    up = np.vstack([np.zeros((1, x.shape[1]), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((h, bpp), np.int32), x[:, :-bpp]])
+    upleft = np.hstack([np.zeros((h, bpp), np.int32), up[:, :-bpp]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = (0, left, up, (left + up) >> 1, paeth)
+    ftype = np.asarray(filters)[np.arange(h) % len(filters)]
+    rows = np.empty((h, x.shape[1] + 1), np.uint8)
+    rows[:, 0] = ftype
+    for f in set(ftype.tolist()):
+        sel = ftype == f
+        rows[sel, 1:] = (x[sel] - (preds[f][sel] if f else 0)) & 0xFF
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", img.shape[1], h, 8,
+                         0 if img.ndim == 2 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def write_tum(root, frames, ts, Rs, tls):
+    """A TUM RGB-D tree as tests/test_dataset_e2e.py writes it: comment
+    headers, rgb/<stamp>.png as 8-bit RGB (gray in three channels),
+    stamps TUM_T0 + t, groundtruth.txt at twice the frame rate, late by
+    TUM_GT_OFFSET."""
+    from scipy.spatial.transform import Rotation
+    os.makedirs(os.path.join(root, "rgb"))
+    lines = ["# color images", "# file: 'synthetic.bag'",
+             "# timestamp filename"]
+    for k, t in enumerate(ts):
+        rel = f"rgb/{TUM_T0 + t:.6f}.png"
+        with open(os.path.join(root, rel), "wb") as f:
+            f.write(png_bytes(np.repeat(frames[k][..., None], 3, 2),
+                              TUM_FILTERS))
+        lines.append(f"{TUM_T0 + t:.6f} {rel}")
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    gt = ["# ground truth trajectory", "# timestamp tx ty tz qx qy qz qw"]
+    for k, t in enumerate(ts):
+        for half in (0.0, 0.5):
+            if half and k + 1 >= len(ts):
+                continue
+            C = -Rs[k].T @ tls[k]
+            q = Rotation.from_matrix(Rs[k].T).as_quat()
+            gt.append(f"{TUM_T0 + t + half / 30.0 + TUM_GT_OFFSET:.6f} "
+                      f"{C[0]:.6f} {C[1]:.6f} {C[2]:.6f} "
+                      f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}")
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.write("\n".join(gt) + "\n")
+
+
+def write_euroc(root, frames, ts, Rs, tls):
+    """An EuRoC MAV tree: mav0/cam0/data.csv in ns and 8-bit gray
+    data/<ns>.png, the 17-column state_groundtruth_estimate0/data.csv
+    (position in columns 1-3)."""
+    data = os.path.join(root, "mav0", "cam0", "data")
+    gt_dir = os.path.join(root, "mav0", "state_groundtruth_estimate0")
+    os.makedirs(data)
+    os.makedirs(gt_dir)
+    cam = ["#timestamp [ns],filename"]
+    gt = ["#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], ..."]
+    for k, t in enumerate(ts):
+        ns = int(round((EUROC_T0 + t) * 1e9))
+        with open(os.path.join(data, f"{ns}.png"), "wb") as f:
+            f.write(png_bytes(frames[k], EUROC_FILTERS))
+        cam.append(f"{ns},{ns}.png")
+        C = -Rs[k].T @ tls[k]
+        gt.append(f"{ns},{C[0]},{C[1]},{C[2]}," + ",".join(["0.0"] * 13))
+    with open(os.path.join(root, "mav0", "cam0", "data.csv"), "w") as f:
+        f.write("\n".join(cam) + "\n")
+    with open(os.path.join(gt_dir, "data.csv"), "w") as f:
+        f.write("\n".join(gt) + "\n")
+
+
+def dataset_session(torch, System, fast_cuda, fast_ops, name, root, cfg,
+                    frames, true_ts, hold=False):
+    """Open the tree at ``root`` as a user would (open_sequence), decode
+    every frame (each must equal the frame written, each stamp lie within
+    1e-6 s of ``true_ts``), track them all on the card, counted as
+    bench.py counts, and score the ATE against the ground truth parsed
+    from disk. ``hold``: every FAST launch of the run is held against
+    the plain version afterwards. Returns the phase's result and the
+    run."""
+    from send_slam_tpu_torch.io.dataset import open_sequence
+    from send_slam_tpu_torch.io.evaluate import ate_rmse
+    t0 = time.perf_counter()
+    seq = open_sequence(root)
+    decoded = list(seq)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(len(decoded), 1)
+    if len(decoded) != len(frames):
+        fail(f"{name}: {len(decoded)} frames decoded of {len(frames)}")
+    for k, ((_, img), ref) in enumerate(zip(decoded, frames)):
+        if img.dtype != np.uint8 or not np.array_equal(img, ref):
+            fail(f"{name}: decoded frame {k} differs from the frame written")
+    ts = np.asarray([t for t, _ in decoded])
+    ts_err = float(np.abs(ts - np.asarray(true_ts)).max())
+    if ts_err > 1e-6:
+        fail(f"{name}: parsed stamps {ts_err} s from the written ones")
+    gt_ts, gt_pos = seq.gt_positions()
+    system = System(cfg, device="cuda")
+    system.frames_extracted = 0
+    fast_cuda.launches = 0
+    with launch_record(fast_cuda) as launches:
+        run = drive(torch, system, [img for _, img in decoded], ts)
+    n_launches = fast_cuda.launches
+    held = hold_launches(fast_ops, launches, name) if hold else (0, 0.0)
+    est_ts, pos = run["est_ts"], run["est_pos"]
+    tracked = len(est_ts)
+    ate = (ate_rmse(est_ts, pos, gt_ts, gt_pos) if tracked >= 3
+           else float("inf"))
+    res = dict(
+        phase=name, layout=type(seq).__name__, frames=len(decoded),
+        shape=list(decoded[0][1].shape), png_decode_ms_per_frame=decode_ms,
+        stamp_max_err_s=ts_err, gt_rows=int(len(gt_ts)),
+        tracked=tracked, tracked_live=run["live"],
+        backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
+        keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
+        frames_through_make_frame=system.frames_extracted,
+        fast_launches=n_launches, launches_held_against_plain=held[0],
+        held_max_abs_err=held[1],
+        median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
+                                     if len(run["t_ok"]) > 1 else None),
+        seconds=run["seconds"])
+    emit(res)
+    if n_launches != system.frames_extracted or n_launches == 0:
+        fail(f"{name}: {n_launches} FAST launches for "
+             f"{system.frames_extracted} make_frame calls")
+    if hold and held[0] != n_launches:
+        fail(f"{name}: {held[0]} of {n_launches} launches held")
+    if tracked < MIN_TRACKED or not ate <= DATASET_MAX_ATE:
+        fail(f"{name}: tracked {tracked} of {len(frames)} (< {MIN_TRACKED})"
+             f" or ATE {ate} m (> {DATASET_MAX_ATE})")
+    return res, run
+
+
+def start_example(root: str, outdir: str):
+    """examples/run_dataset_torch.py over EXAMPLE_FRAMES frames of the TUM
+    tree, started as a user starts it (its CPU threads capped as this
+    script's processes are), to run beside the other offline phases."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    traj = os.path.join(outdir, "example_kf.txt")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(here, "examples",
+                                      "run_dataset_torch.py"),
+         root, "--max-frames", str(EXAMPLE_FRAMES), "--traj-out", traj],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS=str(OFFLINE_THREADS)))
+    _CHILDREN.append(proc)
+    return proc, traj, time.perf_counter()
+
+
+def dataset_example(started):
+    """The example's run of start_example: exit code 0, its frames line
+    for EXAMPLE_FRAMES frames, an ATE line, a keyframe file of one TUM
+    line per keyframe it reports. No accuracy bar: the example imposes
+    FR1's distorted intrinsics on undistorted synthetic frames."""
+    proc, traj, t0 = started
+    try:
+        out, err = proc.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail("dataset_example: the example ran past 240 s")
+    seconds = time.perf_counter() - t0
+    m = re.search(r"^frames: (\d+), tracked: (\d+), [\d.]+ fps, "
+                  r"keyframes: (\d+), landmarks: \d+, loops: \d+$", out, re.M)
+    ate = re.search(r"^(ATE RMSE: \S+ m|no ground truth available)$",
+                    out, re.M)
+    rows = []
+    if os.path.exists(traj):
+        with open(traj) as f:
+            rows = [ln.split() for ln in f if ln.strip()]
+    parsed = all(len(r) == 8 and all(_is_float(v) for v in r) for r in rows)
+    res = dict(phase="dataset_example", rc=proc.returncode,
+               frames_line=m.group(0) if m else None,
+               ate_line=ate.group(0) if ate else None,
+               keyframe_lines=len(rows), seconds_beside_18_to_20=seconds,
+               note="FR1's distorted intrinsics on undistorted synthetic "
+                    "frames: no accuracy bar")
+    emit(res)
+    if proc.returncode != 0:
+        fail(f"dataset_example exited {proc.returncode}:\n{err[-3000:]}")
+    if m is None or int(m.group(1)) != EXAMPLE_FRAMES or ate is None:
+        fail(f"dataset_example printed no frames line for {EXAMPLE_FRAMES} "
+             f"frames or no ATE line:\n{out[-2000:]}")
+    if not parsed or len(rows) != int(m.group(3)):
+        fail(f"dataset_example: {len(rows)} keyframe lines (all TUM: "
+             f"{parsed}) for {m.group(3)} keyframes")
+    return res
+
+
+def _is_float(v: str) -> bool:
+    try:
+        float(v)
+    except ValueError:
+        return False
+    return True
+
+
+def textured_path(torch, System, fast_cuda):
+    """tests/test_stress_e2e.py's flagship lap: the textured room with its
+    whole nuisance stack, 120 frames of one lap, each rendered just
+    before it is tracked (the renders are stateful and taken in order)."""
+    from send_slam_tpu_torch.config import (
+        CameraConfig, EngineConfig, MapConfig, TrackingConfig,
+    )
+    from send_slam_tpu_torch.io.evaluate import ate_rmse
+    from send_slam_tpu_torch.utils.synth import TexturedWorld
+    world = TexturedWorld(seed=11, width=640, height=480, fx=520.0,
+                          fy=520.0, **TEXTURED_KNOBS)
+    ts, Rs, tls = world.trajectory_laps(n_frames=TEXTURED_FRAMES, laps=1.0)
+    cfg = EngineConfig(
+        camera=CameraConfig(width=640, height=480, fx=520.0, fy=520.0,
+                            cx=320.0, cy=240.0),
+        map=MapConfig(max_keyframes=64, max_landmarks=8192, ba_window=8),
+        tracking=TrackingConfig(init_min_matches=50, pipeline_stretch=1))
+    system = System(cfg, device="cuda")
+    system.frames_extracted = 0
+    fast_cuda.launches = 0
+    run = drive(torch, system, Rendered(world, zip(Rs, tls)), ts)
+    launches = fast_cuda.launches
+    gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
+    est_ts, pos = run["est_ts"], run["est_pos"]
+    tracked = len(est_ts)
+    ate = ate_rmse(est_ts, pos, ts, gt) if tracked >= 3 else float("inf")
+    res = dict(
+        phase="textured_path", frames=TEXTURED_FRAMES, knobs=TEXTURED_KNOBS,
+        tracked=tracked, tracked_live=run["live"],
+        backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
+        keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
+        frames_through_make_frame=system.frames_extracted,
+        fast_launches=launches,
+        median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
+                                     if len(run["t_ok"]) > 1 else None),
+        seconds_with_rendering=run["seconds"])
+    emit(res)
+    if launches != system.frames_extracted or launches == 0:
+        fail(f"textured_path: {launches} FAST launches for "
+             f"{system.frames_extracted} make_frame calls")
+    if not (tracked > TEXTURED_MIN_OK and ate < TEXTURED_MAX_ATE
+            and run["keyframes"] < TEXTURED_FRAMES // 2):
+        fail(f"textured_path: tracked {tracked} of {TEXTURED_FRAMES} (bar "
+             f"> {TEXTURED_MIN_OK}), ATE {ate} m (bar < {TEXTURED_MAX_ATE}),"
+             f" {run['keyframes']} keyframes (bar < {TEXTURED_FRAMES // 2})")
+    return res
+
+
+def offline_vs_main(run, main_res, offline, npz):
+    """dataset_tum against phase 5 (the same images; only the stamps
+    differ, epoch seconds parsed from text against k / 30): tracked,
+    keyframes, the frames each emits that the other does not, poses
+    emitted twice, and the largest distance between the two runs'
+    positions of one frame, which must stay within OFFLINE_POS_TOL m
+    with the keyframe counts equal; textured_path's and the main path's
+    median ms per tracked frame."""
+    got = np.load(npz)
+    tum = [int(round(t * 30.0)) for t in got["est_ts"]]
+    main = [int(round(t * 30.0)) for t in run["est_ts"]]
+    ours = dict(zip(tum, got["est_pos"]))
+    theirs = dict(zip(main, run["est_pos"]))
+    common = sorted(set(ours) & set(theirs))
+    diff = (max(float(np.linalg.norm(ours[k] - theirs[k])) for k in common)
+            if common else float("inf"))
+    res = dict(
+        dataset_tum_tracked=len(tum), main_path_tracked=len(main),
+        dataset_tum_keyframes=offline["dataset_tum"]["keyframes"],
+        main_path_keyframes=run["keyframes"],
+        dataset_tum_init_commit_ts=offline["dataset_tum"]["init_commit_ts"],
+        main_path_init_commit_ts=main_res["init_commit_ts"],
+        frames_only_in_dataset_tum=sorted(set(ours) - set(theirs)),
+        frames_only_in_main_path=sorted(set(theirs) - set(ours)),
+        frames_emitted_twice=dict(
+            dataset_tum=sorted({k for k in tum if tum.count(k) > 1}),
+            main_path=sorted({k for k in main if main.count(k) > 1})),
+        common_frames=len(common), max_position_diff_m=diff,
+        textured_median_ms_per_tracked_frame=offline["textured_path"][
+            "median_ms_per_tracked_frame"],
+        main_path_median_ms_per_tracked_frame=main_res[
+            "median_ms_per_tracked_frame"])
+    emit(dict(phase="offline_vs_main", **res))
+    if not (diff <= OFFLINE_POS_TOL and res["dataset_tum_keyframes"]
+            == res["main_path_keyframes"]):
+        fail(f"dataset_tum parts from the main path: positions {diff} m "
+             f"apart (> {OFFLINE_POS_TOL}) or keyframes "
+             f"{res['dataset_tum_keyframes']} against "
+             f"{res['main_path_keyframes']}")
+    return res
+
+
+def offline_main(outdir: str) -> int:
+    """The offline-evaluation phases in a process of their own, which
+    main() starts with the other three after the server phases (the
+    example in a process of its own beside dataset_tum, dataset_euroc
+    and textured_path): their JSON lines go to standard output,
+    dataset_tum's streamed poses to ``outdir/offline.npz``."""
+    signal.signal(signal.SIGALRM, _watchdog)
+    signal.alarm(WATCHDOG_S)
+    atexit.register(_stop_children)       # the example, if a check fails
+    import torch
+    torch.set_num_threads(OFFLINE_THREADS)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from send_slam_tpu_torch.config import CameraConfig, EngineConfig
+    from send_slam_tpu_torch.models.system import System
+    from send_slam_tpu_torch.ops import fast as fast_ops
+    from send_slam_tpu_torch.ops import fast_cuda
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+    fast_cuda.load()
+    for name, w, h, fx, fy, t0, write in (
+            ("dataset_tum", 640, 480, 520.0, 520.0, TUM_T0, write_tum),
+            ("dataset_euroc", EUROC_W, EUROC_H, EUROC_FX, EUROC_FY,
+             EUROC_T0, write_euroc)):
+        world = SyntheticWorld(n_points=900, width=w, height=h, fx=fx,
+                               fy=fy, seed=11)
+        ts, Rs, tls = world.trajectory(n_frames=N_FRAMES)
+        frames = [np.round(world.render(Rs[k], tls[k])).astype(np.uint8)
+                  for k in range(N_FRAMES)]
+        root = os.path.join(outdir, name)
+        write(root, frames, ts, Rs, tls)
+        if name == "dataset_tum":
+            example = start_example(root, outdir)
+        cfg = EngineConfig(camera=CameraConfig(
+            width=w, height=h, fx=fx, fy=fy, cx=world.cx, cy=world.cy))
+        _, run = dataset_session(torch, System, fast_cuda, fast_ops, name,
+                                 root, cfg, frames, t0 + ts,
+                                 hold=name == "dataset_euroc")
+        if name == "dataset_tum":
+            np.savez(os.path.join(outdir, "offline.npz"),
+                     est_ts=np.asarray(run["est_ts"]) - TUM_T0,
+                     est_pos=run["est_pos"])
+    textured_path(torch, System, fast_cuda)
+    dataset_example(example)
+    return 0
 
 
 def render_board(torch, rvec, tvec, noise=0.0, seed=0):
@@ -3397,6 +3831,7 @@ def main() -> int:
     child = start_child("--sessions", tmp)
     lanes_child = start_child("--lanes", tmp)
     ring_child = start_child("--ring", tmp)
+    offline_child = start_child("--offline", tmp)
 
     # --- 7. the carried state of phase 5 held card vs CPU -----------------
     if len(snaps) < len(PARITY_FRAMES):
@@ -3426,6 +3861,11 @@ def main() -> int:
     lanes = join_child(lanes_child, tmp, "lanes", "the camera lanes")
     lanes.update(join_child(ring_child, tmp, "ring", "the 8-lane ring"))
 
+    # --- 18-21. offline evaluation: the datasets, the example, texture ----
+    offline = join_child(offline_child, tmp, "offline",
+                         "the offline-evaluation phases")
+    offline_vs_main(run, result, offline, os.path.join(tmp, "offline.npz"))
+
     emit({"kernels": [{
         "name": "fast_score", "route": "cuda",
         "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
@@ -3438,13 +3878,22 @@ def main() -> int:
         "atlas_path_launches": ap["fast_launches"],
         "scale_path_launches": sp["fast_launches"],
         "scale_path_make_frame_calls": sp["frames_through_make_frame"],
-        "max_abs_err": kc["max_abs_err"],
-        "max_abs_diff": kc["max_abs_err"],
+        "dataset_tum_launches": offline["dataset_tum"]["fast_launches"],
+        "dataset_euroc_launches": offline["dataset_euroc"]["fast_launches"],
+        "dataset_euroc_launches_held_against_plain":
+            offline["dataset_euroc"]["launches_held_against_plain"],
+        "textured_path_launches": offline["textured_path"]["fast_launches"],
+        "max_abs_err": max(kc["max_abs_err"],
+                           offline["dataset_euroc"]["held_max_abs_err"]),
+        "max_abs_diff": max(kc["max_abs_err"],
+                            offline["dataset_euroc"]["held_max_abs_err"]),
         "ms": kt["ms"], "launch_interval_ms": kt["launch_interval_ms"],
         "plain_ms": kt["plain_ms"],
         "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
         "library_ms": None, "unit": kt["unit"],
         "scale_1_3": {k: kt["scale_1_3"][k] for k in (
+            "levels", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "euroc_752x480": {k: kt["euroc_752x480"][k] for k in (
             "levels", "ms", "plain_ms", "bound_ms", "bound_by")}}, {
         "name": "fast_score_batched", "route": "cuda",
         "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
@@ -3476,4 +3925,6 @@ if __name__ == "__main__":
         sys.exit(sessions_main(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] in ("--lanes", "--ring"):
         sys.exit(lanes_main(sys.argv[2], ring=sys.argv[1] == "--ring"))
+    if len(sys.argv) == 3 and sys.argv[1] == "--offline":
+        sys.exit(offline_main(sys.argv[2]))
     sys.exit(main())

@@ -7,9 +7,10 @@ Usage:
         --pattern 9x6 --square-mm 25 [--out priv/calibration/latest.json] \
         [--device cpu]
 
-Reads binary .pgm/.ppm (the port's io/ppm.py; colour files as BT.601
-luma) and .jpg/.jpeg (the port's io/jpeg.py, the decoder's luma plane);
-PNG is not read yet (the port has no PNG decoder). Detection and the
+Reads .png (the port's io/png.py, as cv2.imread's IMREAD_GRAYSCALE),
+binary .pgm/.ppm (the port's io/ppm.py; colour files as BT.601 luma) and
+.jpg/.jpeg (the port's io/jpeg.py, the decoder's luma plane); a file
+that cannot be read is skipped with a message. Detection and the
 Levenberg-Marquardt refinement run on the card unless ``--device cpu``.
 Prints the recovered intrinsics and saves them in the reference's JSON
 format, which both packages and the reference app load.
@@ -29,20 +30,26 @@ JPEG = (".jpg", ".jpeg")
 
 
 def read_gray(path: str) -> np.ndarray:
-    """(H, W) float32 gray of a .pgm/.ppm/.jpg/.jpeg file."""
+    """(H, W) float32 gray of a .png/.pgm/.ppm/.jpg/.jpeg file."""
     from send_slam_tpu_torch.io.jpeg import decode_jpeg_gray
+    from send_slam_tpu_torch.io.png import decode_png
     from send_slam_tpu_torch.io.ppm import decode_ppm, rgb_to_gray_u8
     ext = os.path.splitext(path)[1].lower()
     with open(path, "rb") as f:
         data = f.read()
-    if ext in PPM:
+    if ext == ".png":
+        img = decode_png(data, gray=True)
+        if img is None:
+            raise ValueError(f"{path}: not a readable PNG")
+    elif ext in PPM:
         img = decode_ppm(data)
         if img.ndim == 3:
             img = rgb_to_gray_u8(img)
     elif ext in JPEG:
         img = decode_jpeg_gray(data)
     else:
-        raise ValueError(f"{path}: only {PPM + JPEG} files are read")
+        raise ValueError(f"{path}: only {('.png',) + PPM + JPEG} files "
+                         "are read")
     return img.astype(np.float32)
 
 

@@ -12,6 +12,8 @@ atlas scene on the CPU, in either package.
         --scale 1.3
     JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax \
         --scene lanes --seed 2
+    JAX_PLATFORMS=cpu python scripts/cpu_reference_run.py --package jax \
+        --scene tum        # or --scene euroc, --scene textured
 
 Runs ``System.track_monocular`` at chip_smoke.py's configuration
 (640x480, 1250 features, 8 levels, 256 keyframes, 16384 landmarks, BA
@@ -57,6 +59,18 @@ chip_smoke.py's merge draws, as on the card (scripts/lanes_seeds.py
 runs the port's seeds there). Several minutes; the JAX merge at 16384 landmarks holds a
 few GB.
 
+``--scene tum`` and ``--scene euroc`` are chip_smoke.py's dataset_tum
+and dataset_euroc: the bench arc written as a TUM tree (640x480, 8-bit
+RGB PNGs) or as an EuRoC mav0 tree (752x480 at cam0's focal lengths,
+8-bit gray PNGs) by chip_smoke.py's writers, read back through the
+package's own ``io/dataset.py`` (the JAX package's through cv2), tracked
+at the flagship ORB and map at that camera, scored against the ground
+truth parsed from disk. ``--scene textured`` is its textured_path:
+tests/test_stress_e2e.py's flagship lap on the package's
+``TexturedWorld`` with every nuisance knob, 120 frames of one lap,
+``MapConfig(64, 8192, ba_window=8)``. These three print tracked, live,
+backfilled, keyframes, the init commit time and the ATE.
+
 The port draws its RANSAC samples from a CPU generator on every device,
 so ``--package torch`` here takes the same draws as the port's run on
 the card; ``--package jax`` is the reference at the same configuration.
@@ -81,7 +95,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--package", choices=("jax", "torch"), required=True)
     ap.add_argument("--scene", choices=("bench", "laps", "long", "atlas",
-                                        "lanes"),
+                                        "lanes", "tum", "euroc", "textured"),
                     default="bench")
     ap.add_argument("--frames", type=int, default=90)
     ap.add_argument("--seed", type=int, default=0,
@@ -93,6 +107,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if args.scene == "lanes":
         return lanes(args.package, args.seed)
+    if args.scene in ("tum", "euroc", "textured"):
+        return offline(args.package, args.scene)
     if args.package == "jax":
         import jax
         jax.config.update("jax_platforms", "cpu")
@@ -247,6 +263,98 @@ def main() -> int:
                  n_inliers=int(r.sim3.n_inliers)) for k, r in verifications],
         welds_done=s.welds_done, atlas_left=len(s.atlas),
         seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+def offline(package: str, scene: str) -> int:
+    """chip_smoke.py's dataset_tum, dataset_euroc or textured_path in
+    ``package`` on the CPU."""
+    import tempfile
+    import chip_smoke as cs
+    if package == "jax":
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+        from send_slam_tpu import config as C
+        from send_slam_tpu.io.dataset import open_sequence
+        from send_slam_tpu.models import system as S
+        from send_slam_tpu.utils import synth
+        make = (lambda cfg: S.System(cfg))
+    else:
+        import torch
+        torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+        from send_slam_tpu_torch import config as C
+        from send_slam_tpu_torch.io.dataset import open_sequence
+        from send_slam_tpu_torch.models import system as S
+        from send_slam_tpu_torch.utils import synth
+        make = (lambda cfg: S.System(cfg, device="cpu"))
+    from send_slam_tpu_torch.io.evaluate import ate_rmse
+
+    if scene == "textured":
+        world = synth.TexturedWorld(seed=11, width=640, height=480,
+                                    fx=520.0, fy=520.0, **cs.TEXTURED_KNOBS)
+        ts, Rs, tls = world.trajectory_laps(n_frames=cs.TEXTURED_FRAMES,
+                                            laps=1.0)
+        cfg = C.EngineConfig(
+            camera=C.CameraConfig(width=640, height=480, fx=520.0, fy=520.0,
+                                  cx=320.0, cy=240.0),
+            map=C.MapConfig(max_keyframes=64, max_landmarks=8192,
+                            ba_window=8),
+            tracking=C.TrackingConfig(init_min_matches=50,
+                                      pipeline_stretch=1))
+        # Rendered in order as they are tracked: the renders are stateful.
+        frames = (np.round(world.render(R, t)).astype(np.uint8)
+                  for R, t in zip(Rs, tls))
+        gt_ts, gt = ts, np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
+    else:
+        w, h, fx, fy, t0, write = (
+            (640, 480, 520.0, 520.0, cs.TUM_T0, cs.write_tum)
+            if scene == "tum" else
+            (cs.EUROC_W, cs.EUROC_H, cs.EUROC_FX, cs.EUROC_FY, cs.EUROC_T0,
+             cs.write_euroc))
+        world = synth.SyntheticWorld(n_points=900, width=w, height=h,
+                                     fx=fx, fy=fy, seed=11)
+        ts, Rs, tls = world.trajectory(n_frames=cs.N_FRAMES)
+        written = [np.round(world.render(Rs[k], tls[k])).astype(np.uint8)
+                   for k in range(cs.N_FRAMES)]
+        root = os.path.join(tempfile.mkdtemp(prefix="cpu_reference_"), scene)
+        write(root, written, ts, Rs, tls)
+        seq = open_sequence(root)
+        decoded = list(seq)
+        if len(decoded) != len(written) or not all(
+                np.array_equal(img, ref)
+                for (_, img), ref in zip(decoded, written)):
+            raise SystemExit(f"{scene}: the frames read differ from the "
+                             "frames written")
+        ts = [t for t, _ in decoded]
+        frames = [img for _, img in decoded]
+        gt_ts, gt = seq.gt_positions()
+        cfg = C.EngineConfig(camera=C.CameraConfig(
+            width=w, height=h, fx=fx, fy=fy, cx=world.cx, cy=world.cy))
+    s = make(cfg)
+    live = backfilled = 0
+    est = []
+
+    def take(out):
+        nonlocal live, backfilled
+        if out.tracking_state == 2:
+            live += 1
+            est.append((out.timestamp, out.position))
+        backfilled += len(out.backfill)
+        est.extend((b[0], b[1]) for b in out.backfill)
+
+    t_start = time.perf_counter()
+    for k, img in enumerate(frames):
+        take(s.track_monocular(img, float(ts[k])))
+    for out in s.shutdown():
+        take(out)
+    est.sort(key=lambda e: e[0])
+    ate = ate_rmse([e[0] for e in est], np.asarray([e[1] for e in est]),
+                   gt_ts, gt) if len(est) >= 3 else float("inf")
+    print(json.dumps(dict(
+        package=package, scene=scene, frames=len(ts), tracked=len(est),
+        tracked_live=live, backfilled=backfilled, ate_m=ate,
+        keyframes=int(s._n_kf_host), init_commit_ts=s.init_commit_ts,
+        seconds=time.perf_counter() - t_start)), flush=True)
     return 0
 
 

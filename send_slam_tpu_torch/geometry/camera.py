@@ -11,6 +11,11 @@ from __future__ import annotations
 import torch
 
 
+def intrinsics_matrix(fx, fy, cx, cy, dtype=torch.float32, device=None):
+    return torch.tensor([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=dtype,
+                        device=device)
+
+
 def distort_radtan(xn, dist):
     k1, k2, p1, p2, k3 = dist[0], dist[1], dist[2], dist[3], dist[4]
     x, y = xn[..., 0], xn[..., 1]
@@ -28,6 +33,33 @@ def project(points_cam, fx, fy, cx, cy, dist=None):
     if dist is not None:
         xn = distort_radtan(xn, dist)
     return torch.stack([fx * xn[..., 0] + cx, fy * xn[..., 1] + cy], -1)
+
+
+def unproject(uv, fx, fy, cx, cy):
+    """Pixels (…,2) -> unit-depth normalized rays (…,3), no distortion."""
+    x = (uv[..., 0] - cx) / fx
+    y = (uv[..., 1] - cy) / fy
+    return torch.stack([x, y, torch.ones_like(x)], -1)
+
+
+def distort_kb8(xn, dist):
+    """Kannala-Brandt (fisheye) distortion on normalized coords (…,2);
+    ``dist`` (4,) = (k1, k2, k3, k4)."""
+    k1, k2, k3, k4 = dist[0], dist[1], dist[2], dist[3]
+    r = torch.sqrt(torch.sum(xn * xn, -1))
+    theta = torch.arctan(r)
+    t2 = theta * theta
+    theta_d = theta * (1 + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))))
+    scale = theta_d / torch.clamp(r, min=1e-9)
+    scale = torch.where(r < 1e-9, torch.ones_like(scale), scale)
+    return xn * scale[..., None]
+
+
+def project_kb8(points_cam, fx, fy, cx, cy, dist):
+    """Fisheye projection: camera-frame points (…,3) -> pixels (…,2)."""
+    z = torch.clamp(points_cam[..., 2], min=1e-6)
+    xd = distort_kb8(points_cam[..., :2] / z[..., None], dist)
+    return torch.stack([fx * xd[..., 0] + cx, fy * xd[..., 1] + cy], -1)
 
 
 def undistort_points_kb8(uv, fx, fy, cx, cy, dist, iters: int = 10):

@@ -1,4 +1,4 @@
-"""Two-view geometry: normalized 8-point E, homography DLT, Sampson and
+"""Two-view geometry: normalized 8-point F and E, homography DLT, Sampson and
 transfer errors, and the Sampson Gauss-Newton refinement of (R, t).
 
 Counterpart of ``send_slam_tpu/geometry/epipolar.py``. Every function
@@ -62,6 +62,23 @@ def _epipolar_rows(x1h, x2h):
     ones = torch.ones_like(u1)
     return torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2,
                         u1, v1, ones], -1)
+
+
+def eight_point_fundamental(x1, x2, weights=None):
+    """Normalized 8-point F from (…,N>=8,2) pixel pairs, optional weights
+    (…,N): rank 2 enforced, denormalized, f33-normalized."""
+    x1n, T1 = _normalize_points(x1, weights)
+    x2n, T2 = _normalize_points(x2, weights)
+    A = _epipolar_rows(x1n, x2n)
+    if weights is not None:
+        A = A * weights[..., None]
+    f = _smallest_singular_vector(A)
+    U, S, Vt = torch.linalg.svd(f.reshape(f.shape[:-1] + (3, 3)))
+    S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
+    F = T2.transpose(-1, -2) @ ((U * S[..., None, :]) @ Vt) @ T1
+    f33 = F[..., 2, 2]
+    f33 = torch.where(f33.abs() < 1e-10, torch.ones_like(f33), f33)
+    return F / f33[..., None, None]
 
 
 def eight_point_essential(x1n, x2n, weights=None):

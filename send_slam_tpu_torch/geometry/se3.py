@@ -141,6 +141,11 @@ def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([rho, phi], -1)
 
 
+def se3_identity(dtype=torch.float32, device=None):
+    return (torch.eye(3, dtype=dtype, device=device),
+            torch.zeros(3, dtype=dtype, device=device))
+
+
 def se3_inverse(R: torch.Tensor, t: torch.Tensor):
     Rt = R.transpose(-1, -2)
     return Rt, -(Rt @ t[..., None])[..., 0]
@@ -149,6 +154,11 @@ def se3_inverse(R: torch.Tensor, t: torch.Tensor):
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra,ta) o (Rb,tb): x -> Ra (Rb x + tb) + ta."""
     return Ra @ Rb, (Ra @ tb[..., None])[..., 0] + ta
+
+
+def se3_apply(R, t, x):
+    """Apply to points x (…,3)."""
+    return (R @ x[..., None])[..., 0] + t
 
 
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
@@ -178,3 +188,17 @@ def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
                                 torch.where(idx == 2, q2, q3)))
     q = quat_normalize(q)
     return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
+def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) -> (…,3,3)."""
+    q = quat_normalize(q)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack([
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+    ], -2)

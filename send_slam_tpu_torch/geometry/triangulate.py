@@ -2,7 +2,8 @@
 
 Counterpart of ``send_slam_tpu/geometry/triangulate.py``: the
 inhomogeneous 3x3 normal-equation form solved by the closed-form
-adjugate, elementwise over the batch.
+adjugate, elementwise over the batch; ``triangulate_dlt`` is its one
+point.
 """
 
 from __future__ import annotations
@@ -53,3 +54,9 @@ def triangulate_batch(P1, P2, x1, x2):
         + 1e-9 * torch.eye(3, dtype=A.dtype, device=A.device)
     Mtb = (M * b[..., None]).sum(-2)
     return solve3x3_batch(MtM, Mtb).to(dt)
+
+
+def triangulate_dlt(P1, P2, x1, x2):
+    """One point: P1, P2 (3,4) projections (K [R|t]), x1, x2 (2,) pixels
+    -> (3,) world point, by ``triangulate_batch``."""
+    return triangulate_batch(P1, P2, x1[None], x2[None])[0]

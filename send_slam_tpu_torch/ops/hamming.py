@@ -27,6 +27,18 @@ def unpack_bits(desc: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return bits.reshape(desc.shape[:-1] + (256,)).to(dtype)
 
 
+# The JAX package's names: ``unpack_u32_to_bits`` returns float32 {0,1}
+# by default (the JAX one bfloat16, for the TPU's matmul); the words are
+# int32 tensors holding the uint32 bits.
+unpack_u32_to_bits = unpack_bits
+
+
+def pack_bits_to_u32(bits: torch.Tensor) -> torch.Tensor:
+    """(N, 256) {0,1} -> (N, 8) words: ``ops/orb.py``'s ``pack_bits``."""
+    from send_slam_tpu_torch.ops.orb import pack_bits
+    return pack_bits(bits)
+
+
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
     """(…, N, 8), (…, M, 8) -> (…, N, M) float32 Hamming distances."""
     a = unpack_bits(desc_a)

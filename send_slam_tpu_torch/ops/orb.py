@@ -219,6 +219,12 @@ def ic_angle_from_patches(patches: torch.Tensor) -> torch.Tensor:
     return torch.atan2(m[:, 1], m[:, 0])
 
 
+def ic_angle(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation (radians) at integer keypoints uv
+    (K, 2) of an (H, W) image."""
+    return ic_angle_from_patches(_gather_patches(img, uv, PATCH_R))
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(K, 256) bool -> (K, 8) int32 words, little-endian bit order (the
     uint32 bit patterns of the JAX package's pack_bits)."""
@@ -243,6 +249,13 @@ def brief_from_patches(patches: torch.Tensor,
     idx = _table("pattern", patches.device)[bins]          # (K, 512)
     sel = torch.gather(flat, 1, idx)
     return pack_bits(sel[:, :256] < sel[:, 256:])
+
+
+def brief_descriptors(blurred: torch.Tensor, uv: torch.Tensor,
+                      angle: torch.Tensor) -> torch.Tensor:
+    """Rotated BRIEF at integer keypoints uv (K, 2) of a blurred (H, W)
+    image: (K, 8) int32 words."""
+    return brief_from_patches(_gather_patches(blurred, uv, DESC_R), angle)
 
 
 # ---------------------------------------------------------------------------

@@ -15,14 +15,15 @@ SendSlam.VideoProducer (video_producer.ex) as asyncio tasks publishing
 OpenCV is used only here, at the ingestion edge (the reference uses
 Evision the same way); the SLAM path never touches it.
 
-The port's own copy of ``send_slam_tpu/server/producers.py``. Binary
-PPM/PGM images (a printf pattern or a directory) are read with the
-port's ``io/ppm.py``, as ``cv2.imread`` reads them: RGB, a PGM's gray
-repeated in three channels. Other formats and the camera import ``cv2``
-inside the function that needs it, as the JAX module does, and raise its
-``ImportError`` where OpenCV is absent (the card's machine has none). A
-directory's ``*.ppm`` and ``*.pgm`` files are replayed beside its
-``*.png`` and ``*.jpg``, in one sorted order.
+The port's own copy of ``send_slam_tpu/server/producers.py``. PNG
+images are read with the port's ``io/png.py`` and binary PPM/PGM images
+with its ``io/ppm.py`` (a printf pattern or a directory), as
+``cv2.imread`` reads them: RGB, gray repeated in three channels. Other
+formats and the camera import ``cv2`` inside the function that needs it,
+as the JAX module does, and raise its ``ImportError`` where OpenCV is
+absent (the card's machine had it when last probed; the port does not
+count on it). A directory's ``*.ppm`` and ``*.pgm`` files are replayed
+beside its ``*.png`` and ``*.jpg``, in one sorted order.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from send_slam_tpu_torch.io.png import read_png
 from send_slam_tpu_torch.io.ppm import decode_ppm
 from send_slam_tpu_torch.server import bus as topics
 from send_slam_tpu_torch.server.bus import Bus
@@ -48,7 +50,9 @@ _PNM = (".ppm", ".pgm")
 
 def read_image(path: str) -> Optional[np.ndarray]:
     """An image file -> (H, W, 3) RGB uint8, or None where it cannot be
-    read (``cv2.imread``'s contract). PPM/PGM without OpenCV."""
+    read (``cv2.imread``'s contract). PNG and PPM/PGM without OpenCV."""
+    if path.lower().endswith(".png"):
+        return read_png(path, gray=False)
     if path.lower().endswith(_PNM):
         try:
             with open(path, "rb") as f:

@@ -187,3 +187,48 @@ def test_make_frame_matches(scene, dist):
     differ = (np.asarray(a.desc) != b.desc.numpy().view(np.uint32)).any(1)
     assert not (differ & valid & (_bin_edge_distance(ang) > 1e-4)).any()
     assert valid.sum() > 300
+
+
+def test_ic_angle_and_brief_descriptors(scene):
+    """The JAX package's ic_angle and brief_descriptors (the gather then
+    the patch functions) on the port: angles at 1e-5, descriptors bit
+    for bit given the same angles."""
+    blurred = np.asarray(jpyr.gaussian_blur(jnp.asarray(scene)))
+    rng = np.random.default_rng(9)
+    uv = np.stack([rng.integers(16, 304, 300), rng.integers(16, 224, 300)],
+                  -1).astype(np.int32)
+    uv[:4] = [[0, 0], [319, 239], [5, 200], [310, 3]]      # clamped
+    aj = np.asarray(jorb.ic_angle(jnp.asarray(scene), jnp.asarray(uv)))
+    at = torb.ic_angle(T(scene), T(uv))
+    np.testing.assert_allclose(at.numpy(), aj, atol=1e-5)
+    dj = np.asarray(jorb.brief_descriptors(jnp.asarray(blurred),
+                                           jnp.asarray(uv), jnp.asarray(aj)))
+    dt = torb.brief_descriptors(T(blurred), T(uv), T(aj))
+    np.testing.assert_array_equal(dj, dt.numpy().view(np.uint32))
+
+
+def test_hamming_u32_names():
+    """pack_bits_to_u32 / unpack_u32_to_bits under the JAX names: the
+    same words and bits (the port's words are int32 holding the uint32
+    bits; its bits float32 where the JAX ones are bfloat16)."""
+    from send_slam_tpu.ops import hamming as jham
+    from send_slam_tpu_torch.ops import hamming as tham
+    bits = (np.random.default_rng(3).random((50, 256)) < 0.5)
+    for b in (bits, bits.astype(np.float32), bits.astype(np.int32)):
+        j = np.asarray(jham.pack_bits_to_u32(jnp.asarray(b)))
+        t = tham.pack_bits_to_u32(T(b))
+        assert t.dtype == torch.int32
+        np.testing.assert_array_equal(j, t.numpy().view(np.uint32))
+        uj = np.asarray(jham.unpack_u32_to_bits(jnp.asarray(j)), np.float32)
+        ut = tham.unpack_u32_to_bits(t)
+        np.testing.assert_array_equal(uj, ut.numpy())
+        np.testing.assert_array_equal(ut.numpy(), bits.astype(np.float32))
+
+
+def test_ops_package_exports():
+    """The port's ops package exports the JAX package's names."""
+    import send_slam_tpu.ops as jo
+    import send_slam_tpu_torch.ops as to
+    names = {n for n in dir(jo) if not n.startswith("_")} - {
+        "fast", "hamming", "orb", "pallas", "pyramid", "segsum"}
+    assert names and names <= set(dir(to))

@@ -146,3 +146,90 @@ def test_decompose_homography(rng):
     Rt, tt = thom.decompose_homography(T(H), T(K))
     close(Rt, Rj, atol=1e-4)
     close(tt, tj, atol=1e-4)
+
+
+def test_public_helpers(rng):
+    """The JAX package's public helpers that the main path does not call:
+    se3_identity, se3_apply, rotmat_from_quat, intrinsics_matrix,
+    unproject, distort_kb8, project_kb8, at 1e-5."""
+    for got, ref in zip(tse3.se3_identity(), jse3.se3_identity()):
+        assert got.dtype == torch.float32
+        close(got, ref)
+    xi = rng.normal(size=(16, 6)).astype(np.float32) * 0.5
+    Rj, tj = jse3.se3_exp(jnp.asarray(xi))
+    pts = rng.normal(size=(16, 3)).astype(np.float32) * 3
+    close(tse3.se3_apply(T(np.asarray(Rj)), T(np.asarray(tj)), T(pts)),
+          jse3.se3_apply(Rj, tj, jnp.asarray(pts)))
+    q = rng.normal(size=(32, 4)).astype(np.float32)     # not unit
+    close(tse3.rotmat_from_quat(T(q)), jse3.rotmat_from_quat(jnp.asarray(q)))
+    close(tcam.intrinsics_matrix(260.0, 255.0, 160.5, 119.5),
+          jcam.intrinsics_matrix(260.0, 255.0, 160.5, 119.5))
+    args = (260.0, 255.0, 160.0, 120.0)
+    uv = rng.uniform(0, 320, (64, 2)).astype(np.float32)
+    close(tcam.unproject(T(uv), *args), jcam.unproject(jnp.asarray(uv), *args))
+    xn = rng.uniform(-1.5, 1.5, (64, 2)).astype(np.float32)
+    xn[0] = 0.0                                          # r = 0 branch
+    kb = np.array([0.02, -0.01, 0.003, -0.001], np.float32)
+    close(tcam.distort_kb8(T(xn), T(kb)),
+          jcam.distort_kb8(jnp.asarray(xn), jnp.asarray(kb)))
+    cam_pts = np.concatenate([rng.uniform(-2, 2, (64, 2)),
+                              rng.uniform(0.5, 8, (64, 1))],
+                             -1).astype(np.float32)
+    close(tcam.project_kb8(T(cam_pts), *args, T(kb)),
+          jcam.project_kb8(jnp.asarray(cam_pts), *args, jnp.asarray(kb)))
+
+
+def test_triangulate_dlt(rng):
+    """One point at a time. The port's is triangulate_batch's float64
+    solve (a named divergence since PR 11): it equals the JAX formula
+    evaluated in float64 (numpy) to 1e-9 relative, and the JAX package's
+    float32 solve to 1e-4 relative, that solve's own error on this
+    low-parallax geometry (up to 2.5e-5 measured)."""
+    K, R, t, x1, x2 = _two_views(rng, noise=0.0)
+    P1 = K @ np.eye(3, 4, dtype=np.float32)
+    P2 = K @ np.concatenate([R, t[:, None]], 1)
+
+    def dlt64(P1, P2, a, b):
+        P1, P2, a, b = (np.asarray(v, np.float64) for v in (P1, P2, a, b))
+        A = np.stack([a[0] * P1[2] - P1[0], a[1] * P1[2] - P1[1],
+                      b[0] * P2[2] - P2[0], b[1] * P2[2] - P2[1]])
+        M, r = A[:, :3], -A[:, 3]
+        return np.linalg.solve(M.T @ M + 1e-9 * np.eye(3), M.T @ r)
+
+    for i in range(0, len(x1), 7):
+        got = ttri.triangulate_dlt(T(P1), T(P2), T(x1[i]), T(x2[i]))
+        assert got.shape == (3,) and got.dtype == torch.float32
+        ref = dlt64(P1, P2, x1[i], x2[i])
+        np.testing.assert_allclose(
+            ttri.triangulate_dlt(*(torch.from_numpy(np.asarray(v, np.float64))
+                                   for v in (P1, P2, x1[i], x2[i]))).numpy(),
+            ref, rtol=1e-9, atol=0)
+        jax_ref = np.asarray(jtri.triangulate_dlt(
+            jnp.asarray(P1), jnp.asarray(P2), jnp.asarray(x1[i]),
+            jnp.asarray(x2[i])))
+        close(got, jax_ref, rtol=1e-4, atol=1e-4 * np.abs(jax_ref).max())
+
+
+def test_eight_point_fundamental(rng):
+    """The normalized 8-point F (rank 2, f33 = 1) on a many-point fit,
+    unweighted and weighted: within 1e-5 of F's largest entry."""
+    K, R, t, x1, x2 = _two_views(rng, noise=0.2)
+    w = (rng.random(len(x1)) < 0.9).astype(np.float32)
+    for wt, wj in ((None, None), (T(w), jnp.asarray(w))):
+        Fj = np.asarray(jepi.eight_point_fundamental(
+            jnp.asarray(x1), jnp.asarray(x2), wj))
+        Ft = tepi.eight_point_fundamental(T(x1), T(x2), wt)
+        close(Ft, Fj, rtol=1e-5, atol=1e-5 * np.abs(Fj).max())
+        assert abs(float(Ft[2, 2]) - 1.0) < 1e-6
+        assert abs(float(torch.linalg.det(Ft.double()))) < 1e-9
+
+
+def test_geometry_package_exports():
+    """The port's geometry package exports the JAX package's names."""
+    import send_slam_tpu.geometry as jg
+    import send_slam_tpu_torch.geometry as tg
+    names = {n for n in dir(jg) if not n.startswith("_")} - {
+        "camera", "epipolar", "homography", "se3", "sim3", "triangulate"}
+    assert names and names <= set(dir(tg))
+    for n in names:
+        assert callable(getattr(tg, n)), n

@@ -1,7 +1,8 @@
-"""The port and chip_smoke.py import nothing of JAX or the JAX package,
-nor, when a module loads, ``msgpack``, ``aiohttp``, ``cv2``, ``PIL`` or
-``yaml`` (the JPEG codec and the settings loader import ``PIL`` and
-``yaml`` when called), and the port never falls back to the CPU on its
+"""The port, chip_smoke.py and examples/run_dataset_torch.py import
+nothing of JAX or the JAX package, nor, when a module loads, ``msgpack``,
+``aiohttp``, ``cv2``, ``PIL`` or ``yaml`` (the JPEG codec and the
+settings loader import ``PIL`` and ``yaml`` when called; PNG is read with
+zlib and numpy alone), and the port never falls back to the CPU on its
 own."""
 
 import os
@@ -43,6 +44,10 @@ _CHILD = textwrap.dedent("""
                  "send_slam_tpu_torch.calib.zhang",
                  "send_slam_tpu_torch.calib.pipeline",
                  "send_slam_tpu_torch.io.jpeg",
+                 "send_slam_tpu_torch.io.png",
+                 "send_slam_tpu_torch.io.dataset",
+                 "send_slam_tpu_torch.geometry",
+                 "send_slam_tpu_torch.ops",
                  "send_slam_tpu_torch.parallel",
                  "send_slam_tpu_torch.parallel.mesh",
                  "send_slam_tpu_torch.parallel.multicam",
@@ -55,6 +60,18 @@ _CHILD = textwrap.dedent("""
     for name in mods:
         importlib.import_module(name)
     import chip_smoke  # main() stays behind __name__ == "__main__"
+    import importlib.util, os
+    spec = importlib.util.spec_from_file_location("run_dataset_torch",
+        os.path.join(sys.argv[1], "examples", "run_dataset_torch.py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    from send_slam_tpu_torch.geometry import triangulate_dlt, rotmat_from_quat
+    from send_slam_tpu_torch.ops import pack_bits_to_u32, extract_orb
+    from send_slam_tpu_torch.io.png import decode_png
+    from send_slam_tpu_torch.io.dataset import open_sequence
+    png = chip_smoke.png_bytes(np.arange(12, dtype=np.uint8).reshape(3, 4),
+                               (0, 4, 3))
+    assert decode_png(png).tolist() == [[0, 1, 2, 3], [4, 5, 6, 7],
+                                        [8, 9, 10, 11]]
 
     from send_slam_tpu_torch.config import CameraConfig, OrbConfig
     from send_slam_tpu_torch.models.frame import make_frame

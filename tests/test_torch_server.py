@@ -573,10 +573,17 @@ class TestProducers:
         run(go())
 
     def test_other_formats_need_cv2(self, tmp_path, monkeypatch):
+        """JPEG, video files and the camera need cv2; PNG (like PPM)
+        does not."""
         import sys
+        import cv2
+        rgb = np.random.default_rng(5).integers(0, 256, (6, 9, 3),
+                                                dtype=np.uint8)
+        assert cv2.imwrite(str(tmp_path / "x.png"), rgb[..., ::-1])
         monkeypatch.setitem(sys.modules, "cv2", None)
+        assert np.array_equal(tprod.read_image(str(tmp_path / "x.png")), rgb)
         with pytest.raises(ImportError):
-            tprod.read_image(str(tmp_path / "x.png"))
+            tprod.read_image(str(tmp_path / "x.jpg"))
         with pytest.raises(ImportError):
             list(tprod.VideoProducer(None, str(tmp_path / "v.mp4"))._frames())
         with pytest.raises(ImportError):
