@@ -1,0 +1,224 @@
+"""BENCHMARK.json against the contract's form, the harness finding its
+files by name, and what it imports."""
+
+import ast
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+from bench_helpers import BENCH, ROOT
+from harness import spans
+from harness.spec import Cell
+
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+TEXT = re.compile(r"^[^\t\n]{1,200}$")
+FORBIDDEN = {"jax", "jaxlib", "flax", "send_slam_tpu"}
+
+
+@pytest.fixture(scope="module")
+def bench():
+    return json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def test_keys_and_sizes(bench):
+    assert set(bench) == {"command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"}
+    assert bench["paths"] == ["benchmark"]
+    assert 1 <= bench["run_seconds"] <= 51
+    assert (ROOT / "BENCHMARK.json").stat().st_size <= 64 * 1024
+    for c in bench["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert c["file"].startswith("benchmark/")
+    for w in bench["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["chips"] == 1
+    for m in bench["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound",
+                                          "source"}
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
+    for m in bench["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source",
+                                          "layer", "moves"}
+        assert m["moves"] in {e["name"] for e in bench["end_to_end"]}
+
+
+def test_names_units_and_text(bench):
+    names = []
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        for e in bench[group]:
+            assert NAME.match(e["name"]), e["name"]
+            names.append((group in ("end_to_end", "per_layer"), e["name"]))
+            for k in ("why", "layer", "source"):
+                if k in e and group != "end_to_end" and group != "per_layer":
+                    assert TEXT.match(e[k]), e[k]
+            if "unit" in e:
+                assert UNIT.match(e["unit"]), e["unit"]
+                assert e["better"] in ("lower", "higher")
+            if "layer" in e:
+                assert TEXT.match(e["layer"])
+    for w in bench["workloads"]:
+        assert NAME.match(w["config"]) and NAME.match(w["traffic"])
+    for c in bench["configs"]:
+        for k in c["reduced"]:
+            assert NAME.match(k)
+    metric_names = [n for is_metric, n in names if is_metric]
+    assert len(set(metric_names)) == len(metric_names)
+    for word in bench["command"]:
+        assert TEXT.match(word)
+
+
+def test_every_cell_reports_what_the_contract_asks(bench):
+    for w in bench["workloads"]:
+        cell = Cell(w["name"])
+        e2e = {m["name"] for m in cell.metrics("end_to_end")}
+        assert "setup_s" in e2e and len(e2e) >= 2
+        assert cell.metrics("per_layer")
+        for m in cell.metrics("per_layer"):
+            moved = {e["name"]: e for e in bench["end_to_end"]}[m["moves"]]
+            assert "workloads" not in moved or w["name"] in moved["workloads"]
+        for kind in ("end_to_end", "per_layer"):
+            for m in cell.metrics(kind):
+                assert callable(cell.reader(m))
+        assert set(cell.config["limits"]) == {
+            "frontend_mismatch_pct", "match_mismatch_pct", "pose_gap_px",
+            "ba_gap_px", "tri_gap_rel"}
+        for name in cell.spans():
+            assert (BENCH / "spans" / f"{name}.json").is_file()
+
+
+def test_new_files_are_picked_up_without_a_code_edit(tmp_path):
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cfg = json.loads((BENCH / "configs" / "tum_fr1_mono.json").read_text())
+    cfg["engine"]["orb"]["n_features"] = 1200
+    (tmp_path / "benchmark/configs/other_cam.json").write_text(json.dumps(cfg))
+    traffic = json.loads((BENCH / "traffic" / "steady.json").read_text())
+    traffic["path_scale"] = 2.5
+    (tmp_path / "benchmark/traffic/explore.json").write_text(
+        json.dumps(traffic))
+    (tmp_path / "benchmark/metrics/calls.count.py").write_text(
+        "def read(run):\n    return len(run.calls)\n")
+    (tmp_path / "benchmark/metrics/lanes.ms_per_frame.py").write_text(
+        "SPANS = ('lanes',)\n\n\ndef read(run):\n"
+        "    return sum(run.span_ms('lanes')) or None\n")
+    bench["configs"].append(dict(name="other_cam", source="x",
+                                 file="benchmark/configs/other_cam.json",
+                                 reduced=[], why="a test"))
+    bench["workloads"].append(dict(name="other_cam.explore",
+                                   config="other_cam", traffic="explore",
+                                   chips=1, why="a test"))
+    bench["per_layer"].append(dict(name="calls.count", unit="calls",
+                                   better="higher", source="host_clock",
+                                   layer="device", moves="frames_per_s",
+                                   workloads=["other_cam.explore"]))
+    bench["per_layer"].append(dict(name="lanes.ms_per_frame", unit="ms",
+                                   better="lower", source="program_span",
+                                   layer="lanes", moves="frames_per_s",
+                                   workloads=["other_cam.explore"]))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    (tmp_path / "benchmark/spans/lanes.json").write_text(json.dumps(
+        {"targets": [["send_slam_tpu_torch.parallel.multicam",
+                      "multicam_slam_step"]]}))
+
+    cell = Cell("other_cam.explore", tmp_path)
+    assert cell.config["engine"]["orb"]["n_features"] == 1200
+    assert cell.traffic["path_scale"] == 2.5
+    names = [m["name"] for m in cell.metrics("per_layer")]
+    assert "calls.count" in names
+    reader = cell.reader(cell.metrics("per_layer")[names.index("calls.count")])
+
+    class R:
+        calls = [(0, 1)] * 7
+    assert reader(R) == 7
+    old = Cell("tum_fr1.steady", tmp_path)
+    assert "calls.count" not in [m["name"] for m in old.metrics("per_layer")]
+    # The new span is installed in the new cell's traced run only.
+    assert "lanes" in cell.spans() and "lanes" not in old.spans()
+    loaded = dict(spans.load(tmp_path / "benchmark/spans", cell.spans()))
+    assert loaded["lanes"] == [("send_slam_tpu_torch.parallel.multicam",
+                                "multicam_slam_step")]
+    assert ("send_slam_tpu_torch.models.system", "track_frame") in \
+        loaded["tracking"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    for f in BENCH.rglob("*.py"):
+        for mod in _imports(f):
+            assert mod.split(".")[0] not in FORBIDDEN, (f, mod)
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    for f in (BENCH / "reference").glob("*.py"):
+        for mod in _imports(f):
+            assert mod.split(".")[0] in {"__future__", "functools", "typing",
+                                         "numpy", "reference"}, (f, mod)
+
+
+def test_a_run_loads_no_jax():
+    """Everything a run imports, in a fresh process: no module whose
+    top-level name is jax, jaxlib, flax or send_slam_tpu (compared
+    whole: send_slam_tpu_torch is the program)."""
+    code = (
+        "import sys; sys.path[:0] = [%r, %r]\n"
+        "import run, control\n"
+        "from harness import capture, correct, spans, trace, traffic, peaks\n"
+        "from harness.spec import Cell\n"
+        "from harness.driver import Driver\n"
+        "c = Cell('tum_fr1.steady')\n"
+        "[c.reader(m) for k in ('end_to_end', 'per_layer')"
+        " for m in c.metrics(k)]\n"
+        "print(','.join(run.forbidden_modules()))\n"
+        "print('send_slam_tpu_torch' in sys.modules)\n") % (str(BENCH),
+                                                           str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    found, port = out.stdout.rstrip("\n").split("\n")[-2:]
+    assert found == "" and port == "True"
+
+
+def test_the_forbidden_check_compares_whole_names(monkeypatch):
+    import run
+    monkeypatch.setitem(sys.modules, "send_slam_tpu_torch_x", object())
+    assert "send_slam_tpu" not in run.forbidden_modules()
+    monkeypatch.setitem(sys.modules, "send_slam_tpu.models", object())
+    assert run.forbidden_modules() == ["send_slam_tpu"]
+
+
+RUN = ["benchmark/run.py", "--workload", "tum_fr1.steady", "--seed",
+       "3000000000", "--seconds", "1", "--trace", "0"]
+
+
+def test_without_a_card_the_run_prints_nothing():
+    out = subprocess.run([sys.executable] + RUN, capture_output=True,
+                         text=True, cwd=ROOT, timeout=300,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and out.stdout == ""
+
+
+def test_alone_in_a_directory_the_run_prints_nothing(tmp_path):
+    shutil.copytree(BENCH, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
+    out = subprocess.run([sys.executable] + RUN, capture_output=True,
+                         text=True, cwd=tmp_path, timeout=300)
+    assert out.returncode != 0 and out.stdout == ""
