@@ -82,6 +82,7 @@ from send_slam_tpu_torch.models.sim3_solver import gumbel_noise
 from send_slam_tpu_torch.models.tracking import track_frame
 from send_slam_tpu_torch.ops.hamming import Matches
 from send_slam_tpu_torch.ops.orb import stable_topk
+from send_slam_tpu_torch.utils import profiling
 
 # Tracking states (the wire protocol's values, io/protocol.py).
 TRACKING_NO_IMAGES_YET = 0
@@ -189,6 +190,8 @@ class System:
         # Frames through make_frame (each runs one FAST launch on the
         # card, over every pyramid level).
         self.frames_extracted = 0
+        # track_monocular calls so far: the frame id of the spans.
+        self.calls = 0
         # Survives reset(): the collapse detector must not loop forever
         # on a world whose inits keep committing badly.
         self._collapse_resets = 0
@@ -380,7 +383,8 @@ class System:
             self._init_frames.append((float(tsd), self._make_frame(g, tsd)))
         ts_cur, img_cur = imgs[-1]
         cur = self._make_frame(img_cur, ts_cur)
-        self._try_initialize(cur, float(ts_cur))
+        with profiling.span("slam.init"):
+            self._try_initialize(cur, float(ts_cur))
 
     def _init_par_scale(self) -> float:
         """Parallax-floor multiplier for init acceptance: flat for the
@@ -393,8 +397,9 @@ class System:
 
     def _make_frame(self, img, ts) -> Frame:
         self.frames_extracted += 1
-        return make_frame(img, ts, self.cfg.orb, self.cfg.camera,
-                          device=self.device)
+        with profiling.span("slam.frontend"):
+            return make_frame(img, ts, self.cfg.orb, self.cfg.camera,
+                              device=self.device)
 
     def _init_multi(self, refs: Frame, cur: Frame, par_scale: float):
         """Score the current frame against a batch of references in one
@@ -429,11 +434,13 @@ class System:
         phi = so3_log(R_cur)
         rows = []
         for alpha, frame in zip(alphas, frames):
-            r = track_frame(
-                so3_exp(alpha * phi), alpha * t_cur, m.lm_pos, m.lm_desc,
-                m.lm_valid, frame.uv_und, frame.feat.desc, frame.feat.valid,
-                frame.feat.octave, cam.fx, cam.fy, cam.cx, cam.cy,
-                cam.width, cam.height, tr, scale_factor=orb.scale_factor)
+            with profiling.span("slam.tracking"):
+                r = track_frame(
+                    so3_exp(alpha * phi), alpha * t_cur, m.lm_pos,
+                    m.lm_desc, m.lm_valid, frame.uv_und, frame.feat.desc,
+                    frame.feat.valid, frame.feat.octave, cam.fx, cam.fy,
+                    cam.cx, cam.cy, cam.width, cam.height, tr,
+                    scale_factor=orb.scale_factor)
             Rwc, twc = se3_inverse(r.R, r.t)
             rows.append(torch.cat([twc, quat_from_rotmat(Rwc),
                                    r.n_inliers.to(torch.float32)[None]]))
@@ -458,14 +465,16 @@ class System:
         t_pred = torch.where(st.has_vel, tp, st.t)
 
         frame = self._make_frame(img, ts)
-        res = track_frame(
-            R_pred, t_pred, m.lm_pos, m.lm_desc, m.lm_valid,
-            frame.uv_und, frame.feat.desc, frame.feat.valid,
-            frame.feat.octave, cam.fx, cam.fy, cam.cx, cam.cy,
-            cam.width, cam.height, tr, scale_factor=orb.scale_factor,
-            search_radius=tr.search_radius_px, R_rescue=st.R, t_rescue=st.t,
-            lm_normal=m.lm_normal, lm_dist_min=m.lm_dist_min,
-            lm_dist_max=m.lm_dist_max, n_levels=orb.n_levels)
+        with profiling.span("slam.tracking"):
+            res = track_frame(
+                R_pred, t_pred, m.lm_pos, m.lm_desc, m.lm_valid,
+                frame.uv_und, frame.feat.desc, frame.feat.valid,
+                frame.feat.octave, cam.fx, cam.fy, cam.cx, cam.cy,
+                cam.width, cam.height, tr, scale_factor=orb.scale_factor,
+                search_radius=tr.search_radius_px, R_rescue=st.R,
+                t_rescue=st.t, lm_normal=m.lm_normal,
+                lm_dist_min=m.lm_dist_min, lm_dist_max=m.lm_dist_max,
+                n_levels=orb.n_levels)
         m = update_landmark_stats(m, res.in_view, res.inlier)
 
         # --- keyframe decision (NeedNewKeyFrame) -----------------------
@@ -492,16 +501,21 @@ class System:
         capacity = m.n_kf < MK - 1
         need_kf = ok & capacity & (fs >= tr.kf_min_interval) & (weak | stale)
         kf_slot = torch.where(need_kf, m.n_kf, torch.full_like(m.n_kf, -1))
+        profiling.count("sync.need_kf")
         insert = bool(need_kf)
 
         win = st.ba_window
         if insert:
-            m, _kf_id, _n_new = insert_keyframe_with_triangulation(
-                m, res.R, res.t, frame, res.matches.idx,
-                res.matches.valid & res.inlier, self._K, tr,
-                chain_break=chain_break, scale_factor=orb.scale_factor,
-                n_levels=orb.n_levels, triangulate_backs=tr.triangulate_backs)
-            win = covis_window_ids(m, W)[0]
+            with profiling.span("slam.mapping"):
+                m, _kf_id, _n_new = insert_keyframe_with_triangulation(
+                    m, res.R, res.t, frame, res.matches.idx,
+                    res.matches.valid & res.inlier, self._K, tr,
+                    chain_break=chain_break, scale_factor=orb.scale_factor,
+                    n_levels=orb.n_levels,
+                    triangulate_backs=tr.triangulate_backs)
+                win = covis_window_ids(m, W)[0]
+            profiling.count("keyframes")
+            profiling.count("sync.n_kf")
 
         # --- amortized BA (the LocalMapping time slice) ---------------
         K_INS = tr.kf_insert_ba_iters
@@ -512,13 +526,19 @@ class System:
             tr.ba_slice_damping * (0.5 ** ba_it.to(torch.float32)),
             min=tr.ba_slice_damping * 1e-2)
         if insert and int(m.n_kf) >= 3:
-            m = local_bundle_adjustment(
-                m, self._K, cfg.map, iters=K_INS,
-                damping=tr.ba_slice_damping, window_ids=win, prune=True)
-        elif bool(run_ba):
-            m = local_bundle_adjustment(
-                m, self._K, cfg.map, iters=1, damping=lam, window_ids=win,
-                prune=ba_it >= tr.ba_prune_after)
+            with profiling.span("slam.mapping"):
+                m = local_bundle_adjustment(
+                    m, self._K, cfg.map, iters=K_INS,
+                    damping=tr.ba_slice_damping, window_ids=win, prune=True)
+            profiling.count("ba_slices")
+        else:
+            profiling.count("sync.run_ba")
+            if bool(run_ba):
+                with profiling.span("slam.mapping"):
+                    m = local_bundle_adjustment(
+                        m, self._K, cfg.map, iters=1, damping=lam,
+                        window_ids=win, prune=ba_it >= tr.ba_prune_after)
+                profiling.count("ba_slices")
         ba_it = ba_it + run_ba.to(torch.int32)
 
         st_new = LoopState(
@@ -559,6 +579,7 @@ class System:
             cam.height, tr, scale_factor=orb.scale_factor,
             search_radius=64.0, enable_rescue=False) for c in top]
         nc = torch.stack([r.n_inliers for r in cands])
+        profiling.count("sync.reloc_best")
         best = cands[int(torch.argmax(nc))]
         pnp = relocalize(m.lm_pos, m.lm_desc, m.lm_valid, frame.uv_und,
                          frame.feat.desc, frame.feat.valid, self._K, tr,
@@ -739,36 +760,44 @@ class System:
     def track_monocular(self, gray, timestamp: float) -> TrackOutput:
         """gray: (H, W) uint8 or float image. Returns the pose as Twc
         (world-from-camera). Device timestamps are session-relative."""
-        if self._t0 is None:
-            self._t0 = float(timestamp)
-        ts_dev = float(timestamp) - self._t0
-        self._recent_imgs.append((ts_dev, gray))
-        if self.state in (TRACKING_OK, TRACKING_RECENTLY_LOST):
-            return self._track_pipelined(gray, timestamp, ts_dev)
+        self.calls += 1
+        with profiling.span("slam.frame", self.calls - 1):
+            profiling.count("frames")
+            if self._t0 is None:
+                self._t0 = float(timestamp)
+            ts_dev = float(timestamp) - self._t0
+            self._recent_imgs.append((ts_dev, gray))
+            if self.state in (TRACKING_OK, TRACKING_RECENTLY_LOST):
+                return self._track_pipelined(gray, timestamp, ts_dev)
 
-        self._flush_pipeline()
-        if self.state in (TRACKING_NO_IMAGES_YET, TRACKING_NOT_INITIALIZED):
-            self._try_initialize(self._make_frame(gray, ts_dev), ts_dev)
-        elif self.state == TRACKING_LOST:
-            self._relocalize(self._make_frame(gray, ts_dev), timestamp)
-        if self.state == TRACKING_OK:
-            pos, quat = self._twc()
-            if self._collapse_active:
-                # A commit under a pending collapse probe: hold the pose
-                # and keep reporting "initializing".
-                self._held_outputs.append((timestamp, pos, quat))
-                out = TrackOutput(TRACKING_NOT_INITIALIZED, None, None,
-                                  self._last_inliers, timestamp)
+            self._flush_pipeline()
+            if self.state in (TRACKING_NO_IMAGES_YET,
+                              TRACKING_NOT_INITIALIZED):
+                frame = self._make_frame(gray, ts_dev)
+                with profiling.span("slam.init"):
+                    self._try_initialize(frame, ts_dev)
+            elif self.state == TRACKING_LOST:
+                frame = self._make_frame(gray, ts_dev)
+                with profiling.span("slam.reloc"):
+                    self._relocalize(frame, timestamp)
+            if self.state == TRACKING_OK:
+                pos, quat = self._twc()
+                if self._collapse_active:
+                    # A commit under a pending collapse probe: hold the
+                    # pose and keep reporting "initializing".
+                    self._held_outputs.append((timestamp, pos, quat))
+                    out = TrackOutput(TRACKING_NOT_INITIALIZED, None, None,
+                                      self._last_inliers, timestamp)
+                    self._last_out = out
+                    return out
+                self._trajectory.append((timestamp, pos, quat))
+                bf = tuple(self._backfill_pending)
+                self._backfill_pending = []
+                out = TrackOutput(TRACKING_OK, pos, quat, self._last_inliers,
+                                  timestamp, backfill=bf)
                 self._last_out = out
                 return out
-            self._trajectory.append((timestamp, pos, quat))
-            bf = tuple(self._backfill_pending)
-            self._backfill_pending = []
-            out = TrackOutput(TRACKING_OK, pos, quat, self._last_inliers,
-                              timestamp, backfill=bf)
-            self._last_out = out
-            return out
-        return TrackOutput(self.state, None, None, 0, timestamp)
+            return TrackOutput(self.state, None, None, 0, timestamp)
 
     def _commit_init(self, ref_frame: Frame, cur_frame: Frame,
                      res: InitResult, timestamp: float,
@@ -794,10 +823,13 @@ class System:
         self._kf_trajectory.append(
             (ts_ref, np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0])))
         ts_cur = t0 + float(cur_frame.timestamp)
+        profiling.count("sync.commit_ts", 2)
         Rwc, twc = se3_inverse(res.R, res.t)
         twc_np = twc.cpu().numpy()
         self._kf_trajectory.append(
             (ts_cur, twc_np, quat_from_rotmat(Rwc).cpu().numpy()))
+        profiling.count("sync.commit_pose", 2)
+        profiling.count("keyframes", 2)
         # Arm the young-map scale-collapse probe: the init pair's own
         # baseline velocity is the yardstick.
         dt_init = max(ts_cur - ts_ref, 1.0 / 120.0)
@@ -821,6 +853,7 @@ class System:
             bundle = self._backfill_step(
                 self.map, res.R, res.t, alphas,
                 [f for _, f in between]).cpu().numpy()
+            profiling.count("sync.backfill")
             sink = (self._held_outputs if self._collapse_active
                     else self._backfill_pending)
             for k, (tf, _f) in enumerate(between):
@@ -855,6 +888,7 @@ class System:
                                        frame, self._init_par_scale())
         self.init_attempts += 1
         p = probes.cpu().numpy().reshape(self._n_init_refs, 7)
+        profiling.count("sync.init_probes")
 
         cands = []
         for i in range(n_uniq):
@@ -903,15 +937,17 @@ class System:
                             certified = c
 
         if certified is not None:
-            self._commit_init(refs[certified[1]][1], frame,
-                              _index_result(res, certified[1]), timestamp,
-                              n_good=certified[3])
+            with profiling.span("slam.init"):
+                self._commit_init(refs[certified[1]][1], frame,
+                                  _index_result(res, certified[1]),
+                                  timestamp, n_good=certified[3])
             return
         self._init_tdir_rejects += 1
         if self._init_tdir_rejects >= tr.init_tdir_max_rejects:
             best = self._init_best
-            self._commit_init(best[2], best[3], best[1], best[4],
-                              n_good=best[5])
+            with profiling.span("slam.init"):
+                self._commit_init(best[2], best[3], best[1], best[4],
+                                  n_good=best[5])
             return
         self._init_prev_cands = (timestamp, self.init_attempts,
                                  [(c[2], c[4]) for c in cands])
@@ -925,26 +961,30 @@ class System:
             kind, lam, prune = self._polish_queue.pop(0)
             step = {"wide": self._wide_slice, "young": self._young_slice,
                     "global": self._global_slice}[kind]
-            self.map, dR, dt, big = step(self.map, lam, prune)
-            self.polish_slices_run[kind] += 1
-            # Rebase the speculative chain only on a large wide or young
-            # correction: global slices follow a loop apply that rebased
-            # it already, and rebasing again double-corrects.
-            if kind != "global":
-                self._st = self._rebase_st_cond(self._st, dR, dt, big)
+            with profiling.span("slam.polish"):
+                self.map, dR, dt, big = step(self.map, lam, prune)
+                self.polish_slices_run[kind] += 1
+                # Rebase the speculative chain only on a large wide or
+                # young correction: global slices follow a loop apply
+                # that rebased it already, and rebasing again
+                # double-corrects.
+                if kind != "global":
+                    self._st = self._rebase_st_cond(self._st, dR, dt, big)
+            profiling.count("ba_slices")
 
         st_prev = self._st
         m2, st2, summary = self._frame_step(
             self.map, self._st, gray, ts_dev,
             chain_break=self._reloc_boundary_next_kf)
         self._pending.append(dict(ts=timestamp, st_prev=st_prev,
-                                  summary=summary))
+                                  summary=summary, frame=self.calls - 1))
         self.map, self._st = m2, st2
         depth = self.cfg.tracking.pipeline_depth
         while len(self._pending) > depth:
             if self.state not in (TRACKING_OK, TRACKING_RECENTLY_LOST):
                 break
-            self._ready.append(self._process_lagged())
+            with profiling.span("slam.lagged", self._pending[0]["frame"]):
+                self._ready.append(self._process_lagged())
         if self._ready:
             return self._ready.pop(0)
         # Pipeline warming up: repeat the last output with its own
@@ -963,7 +1003,9 @@ class System:
         ent = self._pending.pop(0)
         tr = self.cfg.tracking
         s = ent["summary"].cpu().numpy()
+        profiling.count("sync.lagged_summary")
         n_inl = int(s[S_INLIERS])
+        profiling.count("inliers", n_inl)
         pos, quat = s[S_POS:S_POS + 3], s[S_QUAT:S_QUAT + 4]
         n_kf = int(s[S_NKF])
         ts = ent["ts"]
@@ -1026,11 +1068,13 @@ class System:
                 self._backfill_pending.extend(self._held_outputs)
                 self._held_outputs = []
 
-        self._maybe_close_loop()
-        self._maybe_weld()
+        with profiling.span("slam.loop"):
+            self._maybe_close_loop()
+            self._maybe_weld()
         if s[S_KF] > 0.5:
             self._on_keyframe_inserted(int(s[S_SLOT]), n_kf, ts, pos, quat)
-        self._maybe_compact(n_kf)
+        with profiling.span("slam.loop"):
+            self._maybe_compact(n_kf)
 
         if self._collapse_active:
             self._held_outputs.append((ts, np.asarray(pos),
@@ -1058,7 +1102,8 @@ class System:
             if self.state not in (TRACKING_OK, TRACKING_RECENTLY_LOST):
                 self._pending.clear()
                 break
-            outs.append(self._process_lagged())
+            with profiling.span("slam.lagged", self._pending[0]["frame"]):
+                outs.append(self._process_lagged())
         # An applied closure must not outlive the pipeline unjudged.
         self._resolve_loop_sanity()
         if final and self._held_outputs:
@@ -1079,6 +1124,7 @@ class System:
         self.last_reloc = dict(ok=n >= tr.reloc_min_matches, inliers=n,
                                branch="pnp" if bool(res.use_pnp)
                                else "retrieval")
+        profiling.count("sync.reloc", 2)
         if n >= tr.reloc_min_matches:
             self._st = self._st.replace(
                 R=res.R, t=res.t, R2=res.R, t2=res.t,
@@ -1136,6 +1182,7 @@ class System:
         if "loop" not in p:                     # phase 1: the score
             score = float(p["scores"][0])
             cand_val = int(p["cands"][0])
+            profiling.count("sync.loop_probe", 2)
             # Saturated scores mean near-duplicate keyframes (a map
             # folded onto itself), not a revisit.
             if score <= tr.loop_score_min or score >= tr.loop_score_max:
@@ -1162,6 +1209,7 @@ class System:
             return
 
         self._pending_loop = None               # phase 2: the verdict
+        profiling.count("sync.loop_verdict")
         if not bool(p["loop"].ok):
             self.loop_attempts.append((kf_slot, p["cand_top"], p["score"],
                                        False, None))
@@ -1189,6 +1237,7 @@ class System:
         tr = self.cfg.tracking
         self._pending_loop_sanity = None
         med_b, med_a = float(p["med_b"]), float(p["med_a"])
+        profiling.count("sync.loop_sanity", 2)
         sane = (not np.isfinite(med_a)) or med_a <= max(
             tr.loop_sanity_px, tr.loop_sanity_factor * max(med_b, 1e-6))
         if sane:
@@ -1197,6 +1246,7 @@ class System:
             self.session_loops_applied += 1
             self._last_loop_nkf = self._n_kf_host
             verified, applied = True, int(p["cand_sel"])
+            profiling.count("sync.loop_sanity")
         else:
             self.map = p["m_pre"]
             dR_inv = p["dR"].T
@@ -1222,6 +1272,7 @@ class System:
         self._pending_weld = None
         if "res" not in p:                      # phase 1: the scores
             scores = [float(sc) for _, sc in p["cands"]]
+            profiling.count("sync.weld_probe", len(scores))
             best_i = int(np.argmax(scores))
             if scores[best_i] <= tr.loop_score_min:
                 return
@@ -1233,6 +1284,7 @@ class System:
             return
 
         best_i, res = p["best_i"], p["res"]     # phase 2: the verdict
+        profiling.count("sync.weld_verdict")
         if not bool(res.ok) or best_i >= len(self.atlas):
             return
         self._resolve_loop_sanity()
@@ -1241,6 +1293,7 @@ class System:
             res.sim3.t)
         self.atlas.pop(best_i)
         self._slots_used = int(self.map.n_kf)
+        profiling.count("sync.weld_slots")
         self._n_kf_host = max(self._n_kf_host, self._slots_used)
         self._enqueue_polish("global", tr.global_ba_slices)
         self.welds_done += 1
@@ -1265,6 +1318,7 @@ class System:
         self._compact_cooldown = self.cfg.tracking.kf_min_interval + 1
         self.map, n_valid = self._compact_step(self.map)
         self._slots_used = int(n_valid)
+        profiling.count("sync.compact")
         # Slot ids moved: the pending probes and the window are stale.
         self._pending_loop = None
         self._pending_weld = None
@@ -1274,6 +1328,7 @@ class System:
             self.map, _n = self._forced_cull_step(self.map)
             self.map, n_valid = self._compact_step(self.map)
             self._slots_used = int(n_valid)
+            profiling.count("sync.compact")
             self._st = self._st.replace(
                 ba_window=self._covis_window(self.map))
 
@@ -1297,7 +1352,8 @@ class System:
         self._slots_used = n_kf
         self._reloc_boundary_next_kf = False
         self._kf_trajectory.append((ts, np.asarray(pos), np.asarray(quat)))
-        self.map = self._maintain_step(self.map)
+        with profiling.span("slam.mapping"):
+            self.map = self._maintain_step(self.map)
         # Young one-anchor re-solve, once per map, after a collapse
         # reset, deferred while a probe is pending. (No map-age bound, as
         # in the reference.)
@@ -1319,7 +1375,8 @@ class System:
                 and self._last_inliers >= tr.loop_min_track_inliers
                 and self._n_kf_host - self._last_loop_nkf
                 >= tr.loop_cooldown_kf):
-            cands, scores = self._loop_candidate(self.map, kf_slot)
+            with profiling.span("slam.loop"):
+                cands, scores = self._loop_candidate(self.map, kf_slot)
             self._pending_loop = dict(kf_slot=kf_slot, cands=cands,
                                       scores=scores)
         # Atlas weld probe: the new keyframe's signature against every
@@ -1335,6 +1392,7 @@ class System:
 
     def _twc(self):
         Rwc, twc = se3_inverse(self._st.R, self._st.t)
+        profiling.count("sync.twc", 2)
         return twc.cpu().numpy(), quat_from_rotmat(Rwc).cpu().numpy()
 
     def keyframe_poses(self):

@@ -20,6 +20,7 @@ from send_slam_tpu_torch.geometry.se3 import se3_compose, se3_exp
 from send_slam_tpu_torch.ops.hamming import (
     Matches, match_descriptors, projection_window_mask,
 )
+from send_slam_tpu_torch.utils.profiling import count
 
 CHI2_2DOF = 5.991
 
@@ -174,6 +175,8 @@ def track_frame(R_pred, t_pred, lm_pos, lm_desc, lm_valid, kp_uv, kp_desc,
     _, opt1, _ = match_and_optimize(R_pred, t_pred, radius, 2)
     m, opt, in_view = match_and_optimize(opt1.R, opt1.t, min(radius, 9.0), 4)
 
+    if enable_rescue:
+        count("sync.track_inliers")
     if enable_rescue and int(opt.n_inliers) < cfg.min_track_matches:
         Rb = R_pred if R_rescue is None else R_rescue
         tb = t_pred if t_rescue is None else t_rescue
