@@ -6,9 +6,10 @@
 Needs one CUDA card (exits non-zero without one, printing no result).
 Phases, each printing one JSON line:
 
-1. environment: the card, its power limit (nvidia-smi), the nvcc build
-   of the CUDA FAST kernel from send_slam_tpu_torch/csrc/ and its
-   -Xptxas -v report (registers, shared memory, spills);
+1. environment: the card, its power limit (nvidia-smi), the nvcc builds
+   of the CUDA FAST and pose Gauss-Newton kernels from
+   send_slam_tpu_torch/csrc/ and their -Xptxas -v reports (registers,
+   shared memory, spills);
 2. kernel_check: the FAST kernel held against its plain PyTorch version
    on the card under torch.equal (every level shape of a 640x480 frame,
    a ragged 100x128 and a 7x9 image, a batch of 3; thresholds 7 and 20;
@@ -19,6 +20,12 @@ Phases, each printing one JSON line:
    level shapes: 369x492, 284x379, ... at 1.3), and one over a 752x480
    frame's 8 levels at 1.2 (EuRoC's width: 480x752, 400x625, ...,
    125x200);
+2a. pose_gn_check: the pose Gauss-Newton kernel against pose_only_gn's
+   plain version on the card (POSE_GN_CASES: the main path's 1,000 and
+   1,250 points, relocalization's 16,384 with sigma2 None, no points, no
+   valid one, points behind the camera, a 180-degree start): R and t
+   within 1e-5, equal inliers and count, one launch a call, a second
+   launch bit-equal;
 3. kernel_times: per 640x480 frame, one launch over the 8 levels (device
    time queued behind a spin kernel, and the unqueued launch interval),
    8 one-level launches of the same kernel (both times), the plain
@@ -26,14 +33,20 @@ Phases, each printing one JSON line:
    version), scale_path's launch (8 levels at 1.3; the kernel and the
    plain version), dataset_euroc's (8 levels of 752x480), and the bytes
    and operations bounds (the operations counted on the timed inputs);
+3a. pose_gn_times: ms per pose Gauss-Newton call, the kernel (behind a
+   spin kernel, the unqueued launch interval, the host's issue time) and
+   the plain version (host-bound), at 1,000 points 2 x 5, 1,250 points
+   4 x 5 and 16,384 points 4 x 10;
 4. frontend_check: make_frame on the card against make_frame on the CPU
    (the plain path) on one 640x480 frame;
 5. main_path: System.track_monocular at the flagship configuration
    (640x480, 1250 features, 8 levels, 256 keyframes, 16384 landmarks,
    BA window 8) with the JAX package's default options, loop closing on,
    over 90 frames of the synthetic bench scene (too few keyframes for a
-   loop probe), with the kernel's launch count read around the run (one
-   launch per make_frame, collapse retries included). Poses are counted
+   loop probe), with the kernels' launch counts read around the run (one
+   FAST launch per make_frame, collapse retries included; one pose GN
+   launch per pose_only_gn call, counted through the tracking and
+   relocalize modules' names). Poses are counted
    as bench.py counts them: live OK outputs, every backfill triple and
    the shutdown drain;
 5a. server_path: the drop-in backend, ``server.backend_client``'s
@@ -199,16 +212,22 @@ Phases, each printing one JSON line:
    positions of one frame within 1e-4 m) and textured_path's frame time
    beside the main path's.
 
-The phases run in the order 1-5, 5a, 6, 5b, 7-21. Phases 12, 13 and 13a
-run in a second process (``chip_smoke.py --sessions DIR``), phases 15
-and 16 in a third (``chip_smoke.py --lanes DIR``), phases 17, 17a and
-17b in a fourth (``chip_smoke.py --ring DIR``) and phases 18-21 in a
-fifth (``chip_smoke.py --offline DIR``), all started after phase 5b and
+The phases run in the order 1, 2, 2a, 3, 3a, 4, 5, 5a, 6, 5b, 7-21.
+Phases 12, 13 and 13a run in a second process (``chip_smoke.py
+--sessions DIR``), phases 15 and 16 in a third (``chip_smoke.py --lanes
+DIR``), phases 17, 17a and 17b in a fourth (``chip_smoke.py --ring
+DIR``) and phases 18-21 in a fifth (``chip_smoke.py --offline DIR``), all started after phase 5b and
 running beside phases 7-11, so the times of phases 7-21 are taken beside
 the other processes (run ``--sessions DIR``, ``--lanes DIR``, ``--ring
 DIR`` or ``--offline DIR`` alone for their phases by themselves); their
 lines are printed after phase 11's and phase 14's. Then the kernels
 summary line and, last, {"ok": true, "device": ...}.
+Every session the phases drive (5, 5a, 5b, 8, 9, 10, 12, 13, 13a, 15,
+17, 18, 19 and 20; not phase 21's subprocess) counts its pose_only_gn calls
+on the card and the pose GN kernel's launches ("pose_gn" in its line)
+and fails unless they are equal; phase 8 also needs a call over the
+whole landmark table (relocalization's 16,384 points, 4 x 10) among
+them.
 Any failed check exits non-zero; a watchdog ends the run after 360 s.
 It imports nothing of JAX or of the JAX package, nor ``msgpack``,
 ``aiohttp`` or ``cv2``; the port's JPEG codec imports ``PIL`` when it is
@@ -343,6 +362,22 @@ INSTR_OPS_S = PEAK_FP32_S / 2
 # per pixel at 67 TFLOP/s; printed beside the bound for comparison.
 OLD_OPS_PER_PIXEL = 424
 SPIN_CYCLES = 100_000_000       # ~50 ms at the H100's 1.98 GHz SM clock
+# The pose Gauss-Newton kernel's cases, tests/test_torch_pose_gn_cuda.py's
+# inputs: name -> (N, rounds, iters, utils/synth.py pose_problem options).
+# The main path's two calls a frame at 1,000 and 1,250 keypoints,
+# relocalization's over the whole 16,384-landmark table (sigma2 None), no
+# points, no valid one, points behind the camera and a 180-degree start.
+POSE_GN_CASES = {
+    "main_1000_2x5": (1000, 2, 5, {}),
+    "main_1250_4x5": (1250, 4, 5, {}),
+    "reloc_16384_4x10": (16384, 4, 10, dict(valid_frac=0.08,
+                                            with_sigma2=False)),
+    "empty": (0, 4, 5, {}),
+    "no_valid_weight": (800, 4, 5, dict(valid_frac=0.0)),
+    "behind_camera": (1000, 4, 5, dict(behind_frac=0.2)),
+    "start_180deg": (600, 4, 5, dict(flip=True)),
+}
+POSE_GN_TOL = 1e-5              # R and t, kernel against the plain version
 
 
 _CHILDREN = []                  # processes this run started
@@ -747,6 +782,119 @@ def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
         euroc_752x480=dict(levels=[list(lv.shape) for lv in euroc],
                            ms=euroc_ms, plain_ms=euroc_plain_ms,
                            **euroc_bound))
+
+
+def pose_gn_inputs(torch, name, dev):
+    """(args, kwargs) of pose_only_gn for a POSE_GN_CASES entry."""
+    from send_slam_tpu_torch.utils.synth import pose_problem
+    n, rounds, iters, opts = POSE_GN_CASES[name]
+    pr = pose_problem(n, seed=1600 + n, **opts)
+    args = [torch.from_numpy(pr[k]).to(dev)
+            for k in ("R0", "t0", "X", "uv_obs", "w_valid")]
+    s2 = pr["sigma2"]
+    kw = dict(sigma2=None if s2 is None else torch.from_numpy(s2).to(dev),
+              rounds=rounds, iters=iters, huber_delta=2.447)
+    return args + [pr["fx"], pr["fy"], pr["cx"], pr["cy"]], kw
+
+
+def pose_gn_check(torch, tracking, pose_gn_cuda):
+    """Phase 2a: the pose Gauss-Newton kernel against the plain version
+    on the card: R and t within POSE_GN_TOL, the same inliers and count,
+    one launch a call, and a second launch bit-equal."""
+    cases, max_R, max_t = {}, 0.0, 0.0
+    for name in POSE_GN_CASES:
+        args, kw = pose_gn_inputs(torch, name, "cuda")
+        n0 = pose_gn_cuda.launches
+        got = tracking.pose_only_gn(*args, **kw)
+        again = tracking.pose_only_gn(*args, **kw)
+        if pose_gn_cuda.launches != n0 + 2:
+            fail(f"pose GN {name}: {pose_gn_cuda.launches - n0} launches "
+                 "for 2 calls")
+        ref = tracking.pose_only_gn_plain(*args, **kw)
+        dR = float((got.R - ref.R).abs().max())
+        dt = float((got.t - ref.t).abs().max())
+        if not (dR <= POSE_GN_TOL and dt <= POSE_GN_TOL):
+            fail(f"pose GN kernel differs from its plain version: {name} "
+                 f"(R {dR}, t {dt})")
+        if not torch.equal(got.inlier, ref.inlier) \
+                or int(got.n_inliers) != int(ref.n_inliers):
+            fail(f"pose GN kernel's inliers differ from the plain "
+                 f"version's: {name}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"pose GN kernel: a repeat of {name} is not bit-equal")
+        max_R, max_t = max(max_R, dR), max(max_t, dt)
+        cases[name] = dict(R_err=dR, t_err=dt,
+                           n_inliers=int(got.n_inliers),
+                           chi2=float(got.chi2), plain_chi2=float(ref.chi2))
+    torch.cuda.synchronize()
+    return dict(comparison=f"R, t within {POSE_GN_TOL}; inliers equal; "
+                           "repeat torch.equal",
+                max_R_err=max_R, max_t_err=max_t, cases=cases)
+
+
+def pose_gn_times(torch, tracking, pose_gn_cuda):
+    """Phase 3a: ms per pose Gauss-Newton call on the card: the kernel
+    (device time behind a spin kernel, the unqueued launch interval, the
+    host's issue time) and the plain version (its launches issued
+    eagerly: host-bound), at the main path's two calls (1,000 points 2 x
+    5, 1,250 points 4 x 5) and relocalization's (16,384, 4 x 10)."""
+    out = {}
+    for name in ("main_1000_2x5", "main_1250_4x5", "reloc_16384_4x10"):
+        args, kw = pose_gn_inputs(torch, name, "cuda")
+
+        def kernel():
+            pose_gn_cuda.pose_gn_cuda(*args, **kw)
+
+        def plain():
+            tracking.pose_only_gn_plain(*args, **kw)
+
+        out[name] = dict(ms=cuda_ms(kernel, 20),
+                         launch_interval_ms=cuda_ms(kernel, 20, queued=False),
+                         launch_host_ms=host_ms(kernel),
+                         plain_ms=cuda_ms(plain, 3, repeats=3))
+    return out
+
+
+@contextlib.contextmanager
+def pose_gn_counted():
+    """Counts, while the block runs, the pose_only_gn calls on CUDA
+    tensors through the tracking and relocalize modules' names (every
+    caller's) and the pose GN kernel's launches: ``rec["calls"]``,
+    ``rec["launches"]`` (the latter set when the block ends), and the
+    calls on the card by "points x rounds x iters" (``rec["shapes"]``)."""
+    from send_slam_tpu_torch.models import relocalize, tracking
+    from send_slam_tpu_torch.ops import pose_gn_cuda
+    rec = dict(calls=0, launches=0, shapes={})
+    reals = [(m, m.pose_only_gn) for m in (tracking, relocalize)]
+
+    def counted(real):
+        def call(R0, t0, X, *a, **kw):
+            if X.is_cuda:
+                rec["calls"] += 1
+                key = "%dx%dx%d" % (X.shape[0], kw.get("rounds", 4),
+                                    kw.get("iters", 10))
+                rec["shapes"][key] = rec["shapes"].get(key, 0) + 1
+            return real(R0, t0, X, *a, **kw)
+        return call
+
+    for m, real in reals:
+        m.pose_only_gn = counted(real)
+    n0 = pose_gn_cuda.launches
+    try:
+        yield rec
+    finally:
+        rec["launches"] = pose_gn_cuda.launches - n0
+        for m, real in reals:
+            m.pose_only_gn = real
+
+
+def check_pose_gn(where, rec):
+    """Fails unless the block that ``rec`` counted made pose_only_gn
+    calls on the card and each took one kernel launch."""
+    if rec["launches"] != rec["calls"] or rec["calls"] == 0:
+        fail(f"{where}: {rec['launches']} pose GN launches for "
+             f"{rec['calls']} pose_only_gn calls on the card (expected one "
+             "per call)")
 
 
 def frontend_check(torch, make_frame, cfg, img):
@@ -1193,8 +1341,9 @@ def loop_path(torch, System, cfg, fast_cuda):
 
     fast_cuda.launches = 0
     system.frames_extracted = 0
-    run = drive(torch, system, frames, ts, after_frame=after_frame,
-                stop=stop)
+    with pose_gn_counted() as gn:
+        run = drive(torch, system, frames, ts, after_frame=after_frame,
+                    stop=stop)
     launches, n_extracted = fast_cuda.launches, system.frames_extracted
     n_run = len(run["states"])
     applied = [a for a in attempts if a["attempt"][3] is True]
@@ -1223,6 +1372,7 @@ def loop_path(torch, System, cfg, fast_cuda):
         polish_slices=run["polish_slices"],
         ms_per_call=ms, global_slice_memory=keep["peaks"],
         frames_through_make_frame=n_extracted, fast_launches=launches,
+        pose_gn=gn,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
@@ -1232,6 +1382,7 @@ def loop_path(torch, System, cfg, fast_cuda):
         res["ok_share_after_first_apply"] = (
             sum(st == TRACKING_OK for st in after) / max(len(after), 1))
     emit(res)
+    check_pose_gn("loop path", gn)
     if launches != n_extracted or launches == 0:
         fail(f"loop path: {launches} FAST launches for {n_extracted} "
              "frames (expected one per make_frame)")
@@ -1385,18 +1536,20 @@ def map_io_phase(torch, System, cfg, system, frames, ts):
     n_kf = int(fresh.map.n_kf)
     states = []
     first = len(frames) // 3
-    for i in range(MAP_IO_RELOC_FRAMES):
-        out = fresh.track_monocular(frames[first + i],
-                                    100.0 + float(ts[first + i]))
-        states.append(out.tracking_state)
-        if out.tracking_state == TRACKING_OK:
-            break
+    with pose_gn_counted() as gn:
+        for i in range(MAP_IO_RELOC_FRAMES):
+            out = fresh.track_monocular(frames[first + i],
+                                        100.0 + float(ts[first + i]))
+            states.append(out.tracking_state)
+            if out.tracking_state == TRACKING_OK:
+                break
     res = dict(phase="map_io", file_bytes=size, save_ms=save_ms,
                load_ms=load_ms, fields_differing=differ, keyframes=n_kf,
                landmarks=int(fresh.map.n_landmarks()), states=states,
                init_attempts=fresh.init_attempts,
-               reloc=fresh.last_reloc)
+               reloc=fresh.last_reloc, pose_gn=gn)
     emit(res)
+    check_pose_gn("map_io", gn)
     if differ:
         fail(f"map I/O round trip differs in {differ}")
     if TRACKING_OK not in states or fresh.init_attempts:
@@ -1476,7 +1629,8 @@ def long_session(torch, System, cfg, fast_cuda):
         setattr(system, name, call)
     fast_cuda.launches = 0
     system.frames_extracted = 0
-    run = drive(torch, system, frames, ts)
+    with pose_gn_counted() as gn:
+        run = drive(torch, system, frames, ts)
     launches, n_extracted = fast_cuda.launches, system.frames_extracted
     states = run["states"]
     n_ok = sum(st == TRACKING_OK for st in states)
@@ -1496,10 +1650,12 @@ def long_session(torch, System, cfg, fast_cuda):
         tracked=len(run["est_ts"]), **_session_ates(system, run, poses, ts),
         ms_per_call=ms, landmarks=run["landmarks"],
         frames_through_make_frame=n_extracted, fast_launches=launches,
+        pose_gn=gn,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
+    check_pose_gn("long session", gn)
     if launches != n_extracted or launches == 0:
         fail(f"long session: {launches} FAST launches for {n_extracted} "
              "frames (expected one per make_frame)")
@@ -1607,7 +1763,8 @@ def atlas_path(torch, System, cfg, fast_cuda):
 
     fast_cuda.launches = 0
     system.frames_extracted = 0
-    run = drive(torch, system, frames, ts, after_frame=after_frame)
+    with pose_gn_counted() as gn:
+        run = drive(torch, system, frames, ts, after_frame=after_frame)
     launches, n_extracted = fast_cuda.launches, system.frames_extracted
     states = run["states"]
     tail_ok = sum(st == TRACKING_OK for st in states[-10:])
@@ -1633,10 +1790,12 @@ def atlas_path(torch, System, cfg, fast_cuda):
         keyframes=int(system.map.n_kf), landmarks=run["landmarks"],
         polish_slices=run["polish_slices"], ms_per_call=ms,
         frames_through_make_frame=n_extracted, fast_launches=launches,
+        pose_gn=gn,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
+    check_pose_gn("atlas path", gn)
     if launches != n_extracted or launches == 0:
         fail(f"atlas path: {launches} FAST launches for {n_extracted} "
              "frames (expected one per make_frame)")
@@ -2116,7 +2275,7 @@ def lanes_path(torch, fast_cuda):
 
     t_phase = time.perf_counter()
     fast_cuda.launches = 0
-    with launch_record(fast_cuda) as recorded:
+    with launch_record(fast_cuda) as recorded, pose_gn_counted() as gn:
         state = init_multicam(cfg, 2, device=CARD, seed=0)
         state, rows_a, ms_a = run_lanes(torch, step, state, images,
                                         range(LANES_MERGE_AFTER),
@@ -2166,6 +2325,7 @@ def lanes_path(torch, fast_cuda):
                    ms=merge_ms, peak_device_bytes=merge_peak),
         fast_launches=launches, launch_shapes=shapes,
         launches_held_against_plain=held, held_max_abs_err=held_err,
+        pose_gn=gn,
         median_ms_per_step=statistics.median(ms),
         median_ms_per_lane_step=statistics.median(ms) / 2,
         mean_ms_per_step=statistics.fmean(ms),
@@ -2173,6 +2333,7 @@ def lanes_path(torch, fast_cuda):
         parity_steps={n: k for n, (k, _) in carried.items()},
         seconds=time.perf_counter() - t_phase)
     emit(res)
+    check_pose_gn("lanes_path", gn)
     for c in range(2):
         if commits[c] is None:
             fail(f"lanes_path: lane {c} never committed an init")
@@ -2384,7 +2545,7 @@ def lanes_ring(torch, fast_cuda):
 
     for _ in range(2):
         fast_cuda.launches = 0
-        with launch_record(fast_cuda) as recorded:
+        with launch_record(fast_cuda) as recorded, pose_gn_counted() as gn:
             state = init_multicam(cfg, RING_LANES, device=CARD, seed=0)
             state, rows, ms = run_lanes(torch, step, state, images,
                                         range(RING_STEPS), after=keep)
@@ -2395,7 +2556,7 @@ def lanes_ring(torch, fast_cuda):
             torch, merge, state.maps,
             merge_noise(RING_LANES, cfg.map.max_landmarks, seed=17))
         runs.append(dict(state=state, rows=rows, ms=ms, launches=launches,
-                         shapes=shapes, held=held, held_err=held_err,
+                         gn=gn, shapes=shapes, held=held, held_err=held_err,
                          merged=merged, ok=ok.cpu().numpy(),
                          n_imp=n_imp.cpu().numpy(), merge_ms=merge_ms,
                          peak=peak))
@@ -2426,7 +2587,7 @@ def lanes_ring(torch, fast_cuda):
                    ms=[a["merge_ms"], b["merge_ms"]],
                    peak_device_bytes=a["peak"]),
         fast_launches=[a["launches"], b["launches"]],
-        launch_shapes=a["shapes"],
+        pose_gn=[a["gn"], b["gn"]], launch_shapes=a["shapes"],
         launches_held_against_plain=[a["held"], b["held"]],
         held_max_abs_err=max(a["held_err"], b["held_err"]),
         replay_bit_equal=replay,
@@ -2434,6 +2595,8 @@ def lanes_ring(torch, fast_cuda):
         median_ms_per_lane_step=statistics.median(ms) / RING_LANES,
         seconds=time.perf_counter() - t_phase)
     emit(res)
+    for r in runs:
+        check_pose_gn("lanes_ring", r["gn"])
     if (a["rows"][-1, :, 0] != MODE_TRACKING).any():
         fail(f"lanes_ring: lanes not all TRACKING: {res['final_modes']}")
     if int(a["ok"].sum()) < RING_LANES - 1:
@@ -2620,7 +2783,8 @@ def scale_path(torch, System, fast_cuda):
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
     fast_cuda.launches = 0
-    run = drive(torch, system, frames, ts)
+    with pose_gn_counted() as gn:
+        run = drive(torch, system, frames, ts)
     launches = fast_cuda.launches
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
     est_ts, pos = run["est_ts"], run["est_pos"]
@@ -2634,11 +2798,12 @@ def scale_path(torch, System, fast_cuda):
         backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
         keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
         frames_through_make_frame=system.frames_extracted,
-        fast_launches=launches,
+        fast_launches=launches, pose_gn=gn,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
+    check_pose_gn("scale_path", gn)
     if launches != system.frames_extracted or launches == 0:
         fail(f"scale_path: {launches} FAST launches for "
              f"{system.frames_extracted} make_frame calls")
@@ -2767,7 +2932,7 @@ def dataset_session(torch, System, fast_cuda, fast_ops, name, root, cfg,
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
     fast_cuda.launches = 0
-    with launch_record(fast_cuda) as launches:
+    with launch_record(fast_cuda) as launches, pose_gn_counted() as gn:
         run = drive(torch, system, [img for _, img in decoded], ts)
     n_launches = fast_cuda.launches
     held = hold_launches(fast_ops, launches, name) if hold else (0, 0.0)
@@ -2784,11 +2949,12 @@ def dataset_session(torch, System, fast_cuda, fast_ops, name, root, cfg,
         keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
         frames_through_make_frame=system.frames_extracted,
         fast_launches=n_launches, launches_held_against_plain=held[0],
-        held_max_abs_err=held[1],
+        held_max_abs_err=held[1], pose_gn=gn,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
+    check_pose_gn(name, gn)
     if n_launches != system.frames_extracted or n_launches == 0:
         fail(f"{name}: {n_launches} FAST launches for "
              f"{system.frames_extracted} make_frame calls")
@@ -2883,7 +3049,8 @@ def textured_path(torch, System, fast_cuda):
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
     fast_cuda.launches = 0
-    run = drive(torch, system, Rendered(world, zip(Rs, tls)), ts)
+    with pose_gn_counted() as gn:
+        run = drive(torch, system, Rendered(world, zip(Rs, tls)), ts)
     launches = fast_cuda.launches
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
     est_ts, pos = run["est_ts"], run["est_pos"]
@@ -2895,11 +3062,12 @@ def textured_path(torch, System, fast_cuda):
         backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
         keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
         frames_through_make_frame=system.frames_extracted,
-        fast_launches=launches,
+        fast_launches=launches, pose_gn=gn,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds_with_rendering=run["seconds"])
     emit(res)
+    check_pose_gn("textured_path", gn)
     if launches != system.frames_extracted or launches == 0:
         fail(f"textured_path: {launches} FAST launches for "
              f"{system.frames_extracted} make_frame calls")
@@ -3469,7 +3637,7 @@ def server_path(torch, System, fast_cuda, frames, ts, run, kernel_build_s):
     bc.System = Served
     fast_cuda.launches = 0
     try:
-        with contextlib.redirect_stdout(printed):
+        with contextlib.redirect_stdout(printed), pose_gn_counted() as gn:
             client = asyncio.run(asyncio.wait_for(session(), 200))
     finally:
         bc.System = System
@@ -3547,8 +3715,10 @@ def server_path(torch, System, fast_cuda, frames, ts, run, kernel_build_s):
         pose_packet_bytes=len(frame_packet_bytes(packets[0]))
         if packets else None,
         fast_launches=launches, warmup_launches=warm_launches,
-        frames_through_make_frame=system.frames_extracted, **host)
+        pose_gn=gn, frames_through_make_frame=system.frames_extracted,
+        **host)
     emit(res)
+    check_pose_gn("server_path", gn)
     if not same:
         fail(f"server_path: the backend's {len(got)} pose packets differ "
              f"from the main path's {len(want)} ({diff})")
@@ -3663,8 +3833,9 @@ def app_path(torch, fast_cuda, frames, warm_launches):
 
     fast_cuda.launches = 0
     t0 = time.perf_counter()
-    app, lat, late, ok, metrics, status, index_status, index, pkt = \
-        asyncio.run(asyncio.wait_for(go(), 180))
+    with pose_gn_counted() as gn:
+        app, lat, late, ok, metrics, status, index_status, index, pkt = \
+            asyncio.run(asyncio.wait_for(go(), 180))
     launches = fast_cuda.launches
     system = app.engine.system
     img = decode_ppm(pkt["frame"])
@@ -3684,10 +3855,11 @@ def app_path(torch, fast_cuda, frames, warm_launches):
         metrics_n_keyframes=metrics.get("n_keyframes"),
         index_status=index_status, index_bytes=len(index),
         tcp_probe_equal=probe_equal, tcp_probe_source_frame=probe_source,
-        fast_launches=launches,
+        fast_launches=launches, pose_gn=gn,
         frames_through_make_frame=system.frames_extracted,
         seconds=time.perf_counter() - t0)
     emit(res)
+    check_pose_gn("app_path", gn)
     if ok != len(lat) + late:
         fail(f"app_path: {len(lat) + late - ok} poses on /client not OK")
     if not (status == 200 and metrics.get("frames", 0) > 0
@@ -3721,8 +3893,9 @@ def main() -> int:
     from send_slam_tpu_torch.models.system import (
         TRACKING_OK, System, loop_state_to_numpy,
     )
+    from send_slam_tpu_torch.models import tracking
     from send_slam_tpu_torch.ops import fast as fast_ops
-    from send_slam_tpu_torch.ops import fast_cuda
+    from send_slam_tpu_torch.ops import fast_cuda, pose_gn_cuda
     from send_slam_tpu_torch.ops.pyramid import build_pyramid, level_shapes
     from send_slam_tpu_torch.utils.synth import SyntheticWorld
 
@@ -3736,15 +3909,25 @@ def main() -> int:
     t0 = time.perf_counter()
     fast_cuda.load()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pose_gn_cuda.load()
+    gn_build_s = time.perf_counter() - t0
     emit(dict(phase="environment", device=name, nvidia_smi=smi,
               torch=torch.__version__, cuda=torch.version.cuda,
-              kernel_library=str(fast_cuda.library_path().name),
-              kernel_build_s=build_s, nvcc_s=fast_cuda.build_seconds,
-              ptxas=ptxas_summary(fast_cuda.ptxas_report())))
+              kernel_library=str(fast_cuda.LIBRARY.path().name),
+              kernel_build_s=build_s, nvcc_s=fast_cuda.LIBRARY.build_seconds,
+              ptxas=ptxas_summary(fast_cuda.LIBRARY.ptxas_report()),
+              pose_gn_library=str(pose_gn_cuda.LIBRARY.path().name),
+              pose_gn_build_s=gn_build_s,
+              pose_gn_nvcc_s=pose_gn_cuda.LIBRARY.build_seconds,
+              pose_gn_ptxas=ptxas_summary(
+                  pose_gn_cuda.LIBRARY.ptxas_report())))
 
-    # --- 2 + 3. kernel vs plain on the card, and its times -----------------
+    # --- 2 + 3. kernels vs plain on the card, and their times --------------
     kc = kernel_check(torch, fast_cuda, fast_ops, level_shapes)
     emit(dict(phase="kernel_check", **kc))
+    gc = pose_gn_check(torch, tracking, pose_gn_cuda)
+    emit(dict(phase="pose_gn_check", **gc))
     cfg = flagship_config()
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
@@ -3756,6 +3939,8 @@ def main() -> int:
         cfg.orb.n_levels, cfg.orb.scale_factor)
     kt = kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr)
     emit(dict(phase="kernel_times", device=name, nvidia_smi=smi, **kt))
+    gt_ms = pose_gn_times(torch, tracking, pose_gn_cuda)
+    emit(dict(phase="pose_gn_times", device=name, nvidia_smi=smi, **gt_ms))
 
     # --- 4 + 5. front end and main path at the flagship config -------------
     emit(dict(phase="frontend_check",
@@ -3775,7 +3960,8 @@ def main() -> int:
 
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    with keep_ba_inputs(torch, system) as kept_ba:
+    with keep_ba_inputs(torch, system) as kept_ba, \
+            pose_gn_counted() as main_gn:
         fast_cuda.launches = 0
         run = drive(torch, system, frames, ts, after_frame=snapshot)
         launches = fast_cuda.launches
@@ -3799,7 +3985,7 @@ def main() -> int:
         keyframes=int(system._n_kf_host),
         landmarks=int(system.map.n_landmarks()),
         ate_m=ate, frames_through_make_frame=n_extracted,
-        fast_launches=launches,
+        fast_launches=launches, pose_gn=main_gn,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         mean_ms_per_tracked_frame=(statistics.fmean(run["t_ok"][1:])
@@ -3815,6 +4001,7 @@ def main() -> int:
     if launches != n_extracted or launches == 0:
         fail(f"{launches} FAST launches for {n_extracted} frames "
              "(expected one per make_frame)")
+    check_pose_gn("main_path", main_gn)
 
     # --- 5a (and 6) + 5b. the server entry points at the flagship config --
     served = server_path(torch, System, fast_cuda, frames, ts, run, build_s)
@@ -3843,8 +4030,15 @@ def main() -> int:
 
     # --- 8. relocalization on the main run's System -----------------------
     reloc_ms = time_calls(torch, system, ("_reloc_step",))
+    with pose_gn_counted() as reloc_gn:
+        rp = reloc_phase(system, frames, ts, gt, est_ts, pos)
     emit(dict(phase="relocalization", reloc_step_ms=reloc_ms["_reloc_step"],
-              **reloc_phase(system, frames, ts, gt, est_ts, pos)))
+              pose_gn=reloc_gn, **rp))
+    check_pose_gn("relocalization", reloc_gn)
+    if not reloc_gn["shapes"].get(f"{cfg.map.max_landmarks}x4x10"):
+        fail(f"relocalization: no pose GN call over the landmark table "
+             f"({cfg.map.max_landmarks} x 4 x 10) went through the kernel: "
+             f"{reloc_gn['shapes']}")
 
     # --- 9. map I/O of the main run's final map ---------------------------
     map_io_phase(torch, System, cfg, system, frames, ts)
@@ -3912,7 +4106,19 @@ def main() -> int:
         "unit": "per step of 2 lanes: 2 x 8 pyramid levels of 640x480, "
                 "raw + NMS at th 7 (lanes_path's launch)",
         "eight_lanes": {k: kt["batch"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by")}}]})
+            "ms", "plain_ms", "bound_ms", "bound_by")}}, {
+        "name": "pose_gn", "route": "cuda",
+        "source": "send_slam_tpu_torch/csrc/pose_gn_kernel.cu",
+        "replaces": None, "launches": main_gn["launches"],
+        "pose_only_gn_calls": main_gn["calls"],
+        "max_R_err": gc["max_R_err"], "max_t_err": gc["max_t_err"],
+        "ms": gt_ms["main_1250_4x5"]["ms"],
+        "launch_interval_ms": gt_ms["main_1250_4x5"]["launch_interval_ms"],
+        "plain_ms": gt_ms["main_1250_4x5"]["plain_ms"],
+        "bound_by": "latency: rounds x iters dependent steps",
+        "library_ms": None,
+        "unit": "per call: 1,250 points, 4 rounds x 5 iterations",
+        "reloc_16384_4x10": gt_ms["reloc_16384_4x10"]}]})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,7 +6,9 @@ search-by-projection (wide window at the motion-model prediction, tight
 window at the refined pose) with Huber GN rounds between them, chi2
 outlier reclassification, the ORB-SLAM isInFrustum gates (viewing
 angle, distance band, predicted octave) and the in-graph rescue pass.
-The JAX package's ``lax.cond`` on the rescue becomes a Python branch.
+The JAX package's ``lax.cond`` on the rescue becomes a Python branch,
+and its ``lax.scan`` of Gauss-Newton steps, on the card, one launch of
+csrc/pose_gn_kernel.cu.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from send_slam_tpu_torch.geometry.se3 import se3_compose, se3_exp
 from send_slam_tpu_torch.ops.hamming import (
     Matches, match_descriptors, projection_window_mask,
 )
+from send_slam_tpu_torch.ops.pose_gn_cuda import pose_gn_cuda
 from send_slam_tpu_torch.utils.profiling import count
 
 CHI2_2DOF = 5.991
@@ -62,7 +65,25 @@ def pose_only_gn(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy, sigma2=None,
                  rounds: int = 4, iters: int = 10,
                  huber_delta: float = 2.447) -> PoseOptResult:
     """Robust pose-only Gauss-Newton: ``rounds`` x ``iters`` Huber
-    steps with chi2 inlier reclassification after each round."""
+    steps with chi2 inlier reclassification after each round. CUDA
+    tensors take one launch of the CUDA kernel (``ops/pose_gn_cuda.py``,
+    csrc/pose_gn_kernel.cu); CPU tensors :func:`pose_only_gn_plain`."""
+    if X.is_cuda:
+        out = pose_gn_cuda(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy,
+                           sigma2=sigma2, rounds=rounds, iters=iters,
+                           huber_delta=huber_delta)
+        count("kernel.pose_gn")
+        return PoseOptResult(*out)
+    return pose_only_gn_plain(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy,
+                              sigma2=sigma2, rounds=rounds, iters=iters,
+                              huber_delta=huber_delta)
+
+
+def pose_only_gn_plain(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy,
+                       sigma2=None, rounds: int = 4, iters: int = 10,
+                       huber_delta: float = 2.447) -> PoseOptResult:
+    """The plain PyTorch version of :func:`pose_only_gn`, op by op on any
+    device (the kernel's reference on the card)."""
     if sigma2 is None:
         sigma2 = torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
     inv_sigma2 = 1.0 / sigma2

@@ -1,6 +1,7 @@
 """Device compute ops: pyramid, FAST, ORB, Hamming matching; the JAX
-package's ``send_slam_tpu.ops`` exports under the same names. FAST's
-CUDA kernel is ``ops/fast_cuda.py`` (built when first called)."""
+package's ``send_slam_tpu.ops`` exports under the same names. The CUDA
+kernels are ``ops/fast_cuda.py`` (FAST) and ``ops/pose_gn_cuda.py`` (the
+pose Gauss-Newton), each built when first called (``ops/cuda_build.py``)."""
 
 from send_slam_tpu_torch.ops.pyramid import build_pyramid, gaussian_blur  # noqa: F401
 from send_slam_tpu_torch.ops.fast import fast_score_map  # noqa: F401

@@ -1,11 +1,9 @@
 """Build and bind the hand-written CUDA FAST-16 kernel (csrc/fast_kernel.cu).
 
-The source is compiled at first use with plain ``nvcc`` into a shared
-library with a C interface (no PyTorch headers: a few seconds), keyed by
-a hash of the source, under ``send_slam_tpu_torch/_build/`` (git-ignored),
-and loaded with ``ctypes``. Nothing is built or loaded at import time.
-``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills) is
-kept beside the library (:func:`ptxas_report`).
+The source is built at first use with plain ``nvcc`` into a shared
+library with a C interface and loaded with ``ctypes``
+(``ops/cuda_build.py``); nothing is built or loaded at import time.
+``LIBRARY.ptxas_report()`` is nvcc's register and shared-memory report.
 
 One launch scores every level of a pyramid, and every row of a batch:
 :func:`fast_score_levels_cuda`. The tile table that maps the launch's
@@ -20,93 +18,33 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
 from typing import Sequence, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fast_kernel.cu"
-BUILD_DIR = _PKG / "_build"
+from send_slam_tpu_torch.ops.cuda_build import BASE_FLAGS, CSRC, CudaLibrary
+
+SOURCE = CSRC / "fast_kernel.cu"
 MAX_LEVELS = 16       # entries of the kernel's level table
 # The kernel's tile, chosen on the card (PERF.md section 6); the build
 # passes it to csrc/fast_kernel.cu, and tile_table uses it.
 TILE_W, TILE_H = 64, 32
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DFAST_TILE_W={TILE_W}", f"-DFAST_TILE_H={TILE_H}"]
+NVCC_FLAGS = [*BASE_FLAGS, f"-DFAST_TILE_W={TILE_W}",
+              f"-DFAST_TILE_H={TILE_H}"]
 
 launches = 0          # kernel launches through fast_score_levels_cuda
-build_seconds = None  # wall time of the nvcc build in this process
-
-_lib = None
-_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA FAST kernel cannot be built")
+def _bind(lib) -> None:
+    lib.fast_score_levels.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.fast_score_levels.restype = ctypes.c_int
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"fast_kernel_{digest}.so"
-
-
-def ptxas_report() -> str:
-    """nvcc's -Xptxas -v lines of the built library ('' before a build)."""
-    log = library_path().with_suffix(".ptxas.txt")
-    return log.read_text() if log.exists() else ""
-
-
-def build() -> Path:
-    """Compile the kernel if its library is missing; return its path."""
-    global build_seconds
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed on %s:\n%s%s" % (
-            SOURCE, proc.stdout, proc.stderr))
-    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)            # atomic: concurrent builders agree
-    build_seconds = time.perf_counter() - t0
-    return out
-
-
-def load():
-    """Build (if needed) and load the library once per process."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.fast_score_levels.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-            lib.fast_score_levels.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _bind)
+load = LIBRARY.load
 
 
 def tile_table(shapes: Tuple[Tuple[int, int], ...]

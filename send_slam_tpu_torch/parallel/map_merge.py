@@ -14,6 +14,10 @@ The ring (``multicam_merge_step``): lane i merges from lane (i + 1) % n,
 its global successor, against the partners' tables as they were before
 the call; repeated calls circulate the whole fleet's content.
 
+The RANSAC draws MERGE_N_HYP 3-pair hypotheses where the reference
+draws N_HYP (128); see MERGE_N_HYP. With the reference's draws injected
+(``noise`` of any hypothesis count) the merge is the reference's.
+
 The nearest-landmark distance of each partner landmark is computed in
 row blocks (the reference broadcasts an (ML, ML, 3) difference: 3.2 GB
 at 16384 landmarks), with the reference's arithmetic per element:
@@ -29,7 +33,6 @@ from typing import List
 import torch
 
 from send_slam_tpu_torch.config import TrackingConfig
-from send_slam_tpu_torch.models.loop_closing import N_HYP
 from send_slam_tpu_torch.models.map_state import MapState, add_landmarks
 from send_slam_tpu_torch.models.sim3_solver import gumbel_noise, sim3_ransac
 from send_slam_tpu_torch.ops.hamming import match_descriptors
@@ -37,6 +40,13 @@ from send_slam_tpu_torch.parallel.mesh import Mesh
 from send_slam_tpu_torch.parallel.multicam import lane_map, stack_maps
 
 NEAREST_BLOCK_ELEMS = 1 << 24   # differences held at once (x3 floats)
+# Hypotheses of a merge's Sim(3) RANSAC: a named divergence from the
+# reference's N_HYP = 128. Two lanes' maps share 50-70 mutual matches on
+# chip_smoke.py's lanes, and 0.65-14% of their 3-pair draws reach the 8
+# inliers a merge needs. At 1%, 128 draws miss in one merge of four, so a
+# float-rounding change in either map decided whether a merge took place;
+# 1,024 draws miss once in 30,000 (at 0.65%, once in 800).
+MERGE_N_HYP = 1024
 
 
 def nearest_distance(pts: torch.Tensor, table: torch.Tensor,
@@ -120,11 +130,11 @@ def merge_from_partner(
 
 def merge_noise(n_cam: int, max_landmarks: int, seed: int = 0,
                 device=None) -> torch.Tensor:
-    """(n_cam, N_HYP, max_landmarks) Gumbel draws for one ring merge,
-    from a CPU generator seeded with ``seed`` (the same numbers on every
-    device)."""
+    """(n_cam, MERGE_N_HYP, max_landmarks) Gumbel draws for one ring
+    merge, from a CPU generator seeded with ``seed`` (the same numbers on
+    every device)."""
     gen = torch.Generator().manual_seed(seed)
-    return gumbel_noise(gen, (n_cam, N_HYP, max_landmarks),
+    return gumbel_noise(gen, (n_cam, MERGE_N_HYP, max_landmarks),
                         device or "cpu")
 
 

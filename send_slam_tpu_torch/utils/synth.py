@@ -13,6 +13,10 @@ that package), rendering bit for bit as it does:
   boxes. Its renders are stateful (the noise generator, the log-gain walk,
   the previous pose, the frame count), so two worlds of one seed render
   the same frames when called in the same order.
+
+Beside them, the port's own ``pose_problem``: seeded inputs of the robust
+pose-only Gauss-Newton, for holding its CUDA kernel against the plain
+version.
 """
 
 from __future__ import annotations
@@ -386,3 +390,57 @@ class TexturedWorld:
     def trajectory_laps(self, n_frames=1000, fps=30.0, laps=4.0):
         return SyntheticWorld.trajectory_laps(
             self, n_frames=n_frames, fps=fps, laps=laps)
+
+
+def pose_problem(n: int, seed: int, *,
+                 valid_frac: float = 0.9, outlier_frac: float = 0.15,
+                 behind_frac: float = 0.0, flip: bool = False,
+                 with_sigma2: bool = True) -> dict:
+    """Inputs of ``pose_only_gn`` (numpy, float32; ``w_valid`` bool) at a
+    640x480 camera with TUM fr1's pinhole: ``n`` points 1-5 m in front of
+    the true pose, observed with noise inside 1.2 sigma (chi2 <= 1.44 at
+    the true pose) or, for ``outlier_frac`` of them, moved 8-30 sigma
+    (chi2 >= 64); sigma2 = 1.2^(2 octave) over octaves 0-7 (or None, and
+    sigma 1 px for every point).
+    ``behind_frac`` of the points lie 0.5-3 m behind the camera, still
+    valid. The start pose is the true one moved by ~2 degrees and ~5 cm;
+    ``flip`` turns it a further 180 degrees about the camera's y axis,
+    which puts every point behind it."""
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = 517.3, 516.5, 318.6, 255.3
+
+    def rot(axis, ang):
+        axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        return np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K
+
+    R_true = rot(rng.normal(size=3), rng.uniform(0.05, 0.5))
+    t_true = rng.uniform(-0.5, 0.5, 3)
+    u = rng.uniform(0, 640, n)
+    v = rng.uniform(0, 480, n)
+    depth = rng.uniform(1.0, 5.0, n)
+    behind = rng.random(n) < behind_frac
+    depth[behind] = -rng.uniform(0.5, 3.0, int(behind.sum()))
+    p_cam = np.stack([(u - cx) / fx * depth, (v - cy) / fy * depth, depth], 1)
+    X = (p_cam - t_true) @ R_true        # R^T (p - t), row by row
+    octave = rng.integers(0, 8, n)
+    sigma2 = 1.2 ** (2.0 * octave)
+    sig = np.sqrt(sigma2) if with_sigma2 else np.ones(n)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    outlier = rng.random(n) < outlier_frac
+    rad = np.where(outlier, rng.uniform(8.0, 30.0, n),
+                   1.2 * np.sqrt(rng.random(n))) * sig
+    uv_obs = np.stack([u + rad * np.cos(ang), v + rad * np.sin(ang)], 1)
+    dR = rot(rng.normal(size=3), np.deg2rad(2.0))
+    R0 = dR @ R_true
+    t0 = dR @ t_true + rng.normal(0, 0.05 / np.sqrt(3), 3)
+    if flip:
+        R0, t0 = rot([0, 1, 0], np.pi) @ R0, rot([0, 1, 0], np.pi) @ t0
+    f32 = np.float32
+    return dict(R0=R0.astype(f32), t0=t0.astype(f32), X=X.astype(f32),
+                uv_obs=uv_obs.astype(f32),
+                w_valid=rng.random(n) < valid_frac,
+                sigma2=sigma2.astype(f32) if with_sigma2 else None,
+                fx=fx, fy=fy, cx=cx, cy=cy,
+                R_true=R_true.astype(f32), t_true=t_true.astype(f32))
