@@ -3,7 +3,11 @@ float32 its configuration states, which ``correct`` has to refuse.
 
 - Matrix products and convolutions run in TF32 (the port's own precision
   switch, ``send_slam_tpu_torch/device.py``, turned the other way): the
-  projections and the normal equations of tracking among them.
+  projections and the normal equations of tracking among them. The
+  robust pose Gauss-Newton, which the program runs on the card as one
+  hand-written kernel that TF32 does not reach, is put in its place as
+  its plain PyTorch version (``pose_only_gn_plain``), whose products it
+  does reach.
 - The front end runs no matrix product; its stages that a later change
   would be tempted to hand to cuDNN (the pyramid's resample and the
   blur, both convolutions) are put in the program's place computed as
@@ -113,14 +117,15 @@ def obs_terms_bf16(orig):
 def on():
     """The control, on for the body of the ``with``."""
     from send_slam_tpu_torch import device
-    from send_slam_tpu_torch.models import local_ba, local_mapping
+    from send_slam_tpu_torch.models import local_ba, local_mapping, tracking
     from send_slam_tpu_torch.ops import orb
     device.set_full_precision()
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32,
              torch.get_float32_matmul_precision())
     saved = (orb.build_pyramid, orb.gaussian_blur,
-             local_mapping.triangulate_batch, local_ba._obs_terms)
+             local_mapping.triangulate_batch, local_ba._obs_terms,
+             tracking.pose_only_gn)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     torch.set_float32_matmul_precision("high")
@@ -128,11 +133,13 @@ def on():
                                             gaussian_blur_tf32)
     local_mapping.triangulate_batch = triangulate_batch_f32
     local_ba._obs_terms = obs_terms_bf16(saved[3])
+    tracking.pose_only_gn = tracking.pose_only_gn_plain
     try:
         yield
     finally:
         (orb.build_pyramid, orb.gaussian_blur,
-         local_mapping.triangulate_batch, local_ba._obs_terms) = saved
+         local_mapping.triangulate_batch, local_ba._obs_terms,
+         tracking.pose_only_gn) = saved
         torch.backends.cuda.matmul.allow_tf32 = flags[0]
         torch.backends.cudnn.allow_tf32 = flags[1]
         torch.set_float32_matmul_precision(flags[2])

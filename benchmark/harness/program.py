@@ -8,16 +8,36 @@ caller's own loop, or code the spans miss.
 ``attribute`` takes the events as ``harness/trace.py`` reads them,
 ``(name, on_device, start_ns, end_ns)``. A window with no ``slam.*``
 range (the program traced nothing, or has no tracer) attributes nothing.
+
+A traced run switches the tracer (``tracer()``) on for its profiler
+window only, and keeps what it recorded there: its spans and its
+counters (``sync.<site>``, one per explicit device-to-host read, and
+others).
 """
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from harness.trace import _union
 
 PREFIX = "slam."
 UNTRACED = ""             # the key of the idle time under no range
+TRACER = "send_slam_tpu_torch.utils.profiling"
+SYNC = "sync."            # the counters of the program's host waits
+
+
+def tracer():
+    """The program's tracer module (``set_tracing``, ``drain``), or None
+    where the program has none."""
+    try:
+        mod = importlib.import_module(TRACER)
+    except ImportError:
+        return None
+    if not (hasattr(mod, "set_tracing") and hasattr(mod, "drain")):
+        return None
+    return mod
 
 
 def is_range(name: str) -> bool:
@@ -67,3 +87,14 @@ def attribute(events) -> Optional[Dict[str, float]]:
         key = UNTRACED if name is None else name
         out[key] = out.get(key, 0.0) + (e - s) * 1e-9
     return out
+
+
+def idle_ms_per_frame(run, names) -> Optional[float]:
+    """ms a camera frame of the profiler window in which the device sat
+    idle under one of the ``slam.*`` ranges ``names`` (innermost); None
+    where the window has no range."""
+    t = run.trace
+    idle = t.get("idle_by_range") if t else None
+    if idle is None or not t["frames"]:
+        return None
+    return sum(idle.get(n, 0.0) for n in names) * 1e3 / t["frames"]

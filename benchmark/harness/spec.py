@@ -1,15 +1,26 @@
 """The benchmark's files, found by the names ``BENCHMARK.json`` gives:
 
 - ``configs/<config>.json`` (the entry's ``file``): the deployment as
-  run: the engine's configuration and the comparison's ``limits``;
-- ``traffic/<traffic>.json``: the parameters of the one generator;
+  run: the engine's configuration, its ``driver`` and the comparison's
+  ``limits``;
+- ``drivers/<driver>.py``: how the deployment is driven: its recording,
+  ``generate(traffic, config, workers)``; ``Driver(engine_cfg,
+  recording, device)`` with ``setup()``, ``step()`` (camera frames
+  handed over, whether the call returned a pose), ``images(k)`` (what
+  call k handed over) and ``finish()`` (the map's fill, the streamed
+  trajectory and the true centres of its frames); and ``SITES``, the
+  comparison's sites it adds to a stage;
+- ``traffic/<traffic>.json``: the parameters of the driver's generator;
+- ``checks/<number>.py``, one per key of the configuration's ``limits``:
+  a number the comparison judges (``harness/capture.py``,
+  ``harness/correct.py``);
 - ``metrics/<metric>.py``: a reader ``read(run)`` per metric, end to end
   or per layer, returning a number or None, and the spans it reads
   (``SPANS``, a tuple of names; none when left out);
 - ``spans/<span>.json``: the program functions a span times.
 
-No list of names sits in code: a new configuration, traffic mix, metric
-or span is a new file and a new entry.
+No list of names sits in code: a new configuration, driver, traffic
+mix, check, metric or span is a new file and a new entry.
 """
 
 from __future__ import annotations
@@ -50,6 +61,15 @@ class Cell:
         self.traffic: Dict = json.loads(
             (self.bench_dir / "traffic" / f"{self.workload['traffic']}.json")
             .read_text())
+        self._modules: Dict = {}
+
+    def driver(self):
+        """The configuration's driver module."""
+        return self._load("drivers", self.config["driver"])
+
+    def checks(self) -> Dict:
+        """{number: check module} for each key of the ``limits``."""
+        return {k: self._load("checks", k) for k in self.config["limits"]}
 
     def metrics(self, kind: str) -> List[Dict]:
         """The ``end_to_end`` or ``per_layer`` metrics this cell reports."""
@@ -65,6 +85,12 @@ class Cell:
                        for s in getattr(self._reader_module(m), "SPANS", ())})
 
     def _reader_module(self, metric: Dict):
-        path = self.bench_dir / "metrics" / f"{metric['name']}.py"
-        return load_module(path, "bench_metric_" + metric["name"].replace(
-            ".", "_").replace("-", "_"))
+        return self._load("metrics", metric["name"])
+
+    def _load(self, kind: str, name: str):
+        """``<kind>/<name>.py``, loaded once per cell."""
+        if (kind, name) not in self._modules:
+            self._modules[kind, name] = load_module(
+                self.bench_dir / kind / f"{name}.py",
+                f"bench_{kind}_" + name.replace(".", "_").replace("-", "_"))
+        return self._modules[kind, name]

@@ -5,7 +5,9 @@ Device events are the profiler's CUDA-side events: kernels, and the
 copies and fills named ``Memcpy ...`` / ``Memset ...``. Host events are
 the runtime's calls and the operators on the host. Everything is read
 from the Kineto results directly (no event tree is built), so a window
-of some hundred thousand events reads in seconds.
+of some hundred thousand events reads in seconds. The program's own
+``slam.*`` ranges (``harness/program.py``) are host events; the
+profiler's device-side annotation of one is no device work.
 """
 
 from __future__ import annotations
@@ -80,8 +82,13 @@ def _union(intervals):
 
 def summarize(events, wall_s: float) -> Dict:
     """Counts, busy time, kernel times by name and the idle gaps, each gap
-    named by the innermost host event that covers its middle."""
-    dev = [(n, s, e) for n, d, s, e in events if d]
+    named by the innermost host event that covers its middle (among the
+    400 that started last before it, else the innermost ``slam.*``
+    range), and the idle seconds by ``slam.*`` range
+    (``idle_by_range``: ``program.attribute``, None without ranges)."""
+    from harness import program
+    dev = [(n, s, e) for n, d, s, e in events
+           if d and not program.is_range(n)]
     host = sorted((s, e, n) for n, d, s, e in events if not d)
     kernels = [(n, s, e) for n, s, e in dev
                if not n.startswith(("Memcpy", "Memset"))]
@@ -95,9 +102,11 @@ def summarize(events, wall_s: float) -> Dict:
 
     starts = [h[0] for h in host]
     gaps = collections.Counter()
-    for (s0, e0), (s1, _) in zip(busy, busy[1:]):
-        mid = (e0 + s1) // 2
-        label = "host (no traced call)"
+    pairs = list(zip(busy, busy[1:]))
+    mids = [(e0 + s1) // 2 for (_, e0), (s1, _) in pairs]
+    in_range = program.innermost(mids, program.ranges(events))
+    for ((_, e0), (s1, _)), mid, rng in zip(pairs, mids, in_range):
+        label = rng or "host (no traced call)"
         i = bisect.bisect_right(starts, mid) - 1
         for j in range(i, max(i - 400, -1), -1):
             if host[j][1] >= mid:
@@ -110,4 +119,5 @@ def summarize(events, wall_s: float) -> Dict:
         kernel_s={n: v for n, v in by_kernel.items()},
         device_ops=sorted(((n, sum(v)) for n, v in by_kernel.items()),
                           key=lambda x: -x[1])[:10],
-        idle_gaps=gaps.most_common(10))
+        idle_gaps=gaps.most_common(10),
+        idle_by_range=program.attribute(events))

@@ -1,0 +1,11 @@
+"""ms a camera frame in which the device sat idle under the program's
+``slam.frontend`` range (innermost) in the profiler window: the host's
+work in ``make_frame`` that the device waited on."""
+
+from harness.program import idle_ms_per_frame
+
+RANGES = ("slam.frontend",)
+
+
+def read(run):
+    return idle_ms_per_frame(run, RANGES)

@@ -4,17 +4,20 @@
         --trace <0|1>
 
 Needs CUDA cards, as many as the cell asks for; without them it exits
-non-zero and prints no result. It renders the cell's traffic from the
-seed, sets the engine up and warms it (``setup_s``), then drives it
-closed loop for ``--seconds``: the next frame goes in when the call
-returns. ``--trace 0`` reports the cell's end-to-end metrics; ``--trace
-1`` times the layers with synchronised spans over the first 60% of the
+non-zero and prints no result. The configuration's driver
+(``drivers/<driver>.py``) makes the cell's recording from its traffic
+file, sets the engine up and warms it (``setup_s``), then drives it
+closed loop for ``--seconds``: the next call goes in when the one before
+returns. ``--trace 0`` reports the cell's end-to-end metrics, recording
+the card's activity over the whole window where one of them reads the
+device (``harness/devclock.py``); ``--trace 1`` times the layers with synchronised spans over the first 60% of the
 window and reads one ``torch.profiler`` window over the steady frames
-after it, and reports the per-layer metrics, the device's busy time and
-a breakdown. Either way the sampled outputs of the timed stages are
-compared with the plain reference once the window has closed
-(``harness/correct.py``); the numbers compared end standard error and
-the result line. The last line of standard output is one JSON object.
+after it, with the program's own tracer on, and reports the per-layer
+metrics, the device's busy time and a breakdown. Either way the sampled
+outputs of the timed stages are compared with the plain reference once
+the window has closed (``checks/``, ``harness/correct.py``); the numbers
+compared end standard error and the result line. The last line of
+standard output is one JSON object.
 """
 
 from __future__ import annotations
@@ -45,53 +48,54 @@ THREADS = 1              # torch's host threads: one process, few threads
 
 
 def engine_config(d):
-    """EngineConfig from the configuration file's ``engine`` group."""
+    """EngineConfig from the configuration file's ``engine`` group: each
+    group given sets its fields, the rest keep the engine's defaults."""
     import dataclasses
     from send_slam_tpu_torch import config as C
 
     def build(cls, vals):
         kw = {}
         for f in dataclasses.fields(cls):
-            if f.name in vals:
-                v = vals[f.name]
-                kw[f.name] = tuple(v) if isinstance(v, list) else v
+            if f.name not in vals:
+                continue
+            v = vals[f.name]
+            if dataclasses.is_dataclass(f.default):
+                v = build(type(f.default), v)
+            kw[f.name] = tuple(v) if isinstance(v, list) else v
         return cls(**kw)
 
-    return C.EngineConfig(
-        orb=build(C.OrbConfig, d["orb"]), camera=build(C.CameraConfig,
-                                                       d["camera"]),
-        map=build(C.MapConfig, d["map"]),
-        tracking=build(C.TrackingConfig, d["tracking"]),
-        dtype=d.get("dtype", "float32"),
-        image_dtype=d.get("image_dtype", "float32"))
+    return build(C.EngineConfig, d)
 
 
 def forbidden_modules():
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def _fast_bound(traffic, calls, cfg_orb):
+def _fast_bound(drv, calls, cfg_orb):
     """Mean least time per FAST launch over a sample of the profiler
-    window's calls, on the frames they handed over."""
+    window's calls, on the images they handed over (one launch a call,
+    over all of its images)."""
     from harness.peaks import fast_bound_ms
     from reference.frontend import fast_counts
     if not calls:
         return None
     pick = [calls[int(i * len(calls) / FAST_SAMPLE)]
             for i in range(min(FAST_SAMPLE, len(calls)))]
-    bounds = [fast_bound_ms(*fast_counts(traffic.frames[traffic.index(k)],
-                                         cfg_orb)) for k in pick]
+    bounds = []
+    for k in pick:
+        counts = [fast_counts(img, cfg_orb) for img in drv.images(k)]
+        bounds.append(fast_bound_ms(*(sum(c) for c in zip(*counts))))
     return sum(bounds) / len(bounds)
 
 
-def _ate(traj, traffic):
+def _ate(traj, centres):
     """Sim(3)-aligned RMSE (m) of the streamed positions, (session frame,
-    position) pairs, against the true centres."""
+    position) pairs, against the true centres of those frames."""
     import numpy as np
     if len(traj) < 3:
         return None
     e = np.array([p for _, p in traj], np.float64)
-    g = np.array([traffic.centres[traffic.index(k)] for k, _ in traj])
+    g = np.array(centres, np.float64)
     me, mg = e.mean(0), g.mean(0)
     xe, xg = e - me, g - mg
     U, D, Vt = np.linalg.svd(xg.T @ xe / len(e))
@@ -104,17 +108,28 @@ def _ate(traj, traffic):
     return float(np.sqrt(((al - g) ** 2).sum(1).mean()))
 
 
+def _host_clock(run):
+    """The window on the host's clock, for the record: camera frames per
+    second and the 95th percentile of the calls' ms."""
+    import numpy as np
+    if not run.calls or run.window_s <= 0:
+        return None
+    ms = [(e - s) * 1e3 for s, e in run.calls]
+    return dict(frames_per_s=run.frames() / run.window_s,
+                frame_ms_p95=float(np.percentile(ms, 95)))
+
+
 def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
              workers=None):
     """One run of ``cell`` (a ``harness.spec.Cell``). Returns the result
     dict (its "checks" last) and the list of lines for standard error."""
     import torch
 
-    from harness import capture, correct, spans as spans_mod
+    from harness import capture, correct, devclock, program
+    from harness import spans as spans_mod
     from harness import trace as trace_mod
-    from harness.driver import Driver
     from harness.record import Run
-    from harness.traffic import generate, render_workers
+    from harness.traffic import render_workers
 
     t_start = time.perf_counter() if t_start is None else t_start
     t_entry = time.perf_counter()
@@ -122,18 +137,26 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     torch.set_num_threads(THREADS)
 
+    driver = cell.driver()
+    checks = cell.checks()
     t0 = time.perf_counter()
-    traffic = generate(cell.traffic, cell.config,
-                       render_workers() if workers is None else workers)
+    recording = driver.generate(
+        cell.traffic, cell.config,
+        render_workers() if workers is None else workers)
     render_s = time.perf_counter() - t0
 
     cfg = engine_config(cell.config["engine"])
-    drv = Driver(cfg, traffic, device)
+    drv = driver.Driver(cfg, recording, device)
     t_setup = time.perf_counter()
     drv.setup()
     t_setup = time.perf_counter() - t_setup
-    stash = capture.stash(seed)
+    stash = capture.stash(seed, checks, driver.SITES)
     stash.install()
+    # An untraced run whose end-to-end metrics read the device records the
+    # card's activity over the whole window (built here, as set-up).
+    clock = devclock.DeviceClock(sync) if cuda and not trace and any(
+        m["source"] == "device_trace"
+        for m in cell.metrics("end_to_end")) else None
     sync()
     setup_s = time.perf_counter() - t_start - render_s
 
@@ -142,9 +165,26 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
                            sync=sync) if trace else None
     if span is not None:
         span.install()
-    prof, prof_calls, summary = None, [], None
-    calls, first_pose, span_frames = [], None, 0
-    w0 = time.perf_counter()
+    tracer = program.tracer() if trace else None
+    prof, prof_calls, summary, recorded = None, [], None, None
+    calls, call_frames, first_pose, span_frames = [], [], None, 0
+    device = None
+    if clock is not None:
+        clock.start()
+    w0, w0_ns = time.perf_counter(), time.time_ns()
+
+    def stop_window():
+        # The program's spans and counters over the profiler window, on
+        # the window's clock (its stamps are time.time_ns()).
+        if tracer is not None:
+            tracer.set_tracing(False)
+        out = prof.stop()
+        if tracer is None:
+            return out, None
+        got = tracer.drain()
+        return out, ([(n, f, (s - w0_ns) * 1e-9, (e - w0_ns) * 1e-9)
+                      for n, f, _, s, e in got.spans], dict(got.counts))
+
     try:
         while True:
             c0 = time.perf_counter() - w0
@@ -155,23 +195,33 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
                 span.uninstall()
                 prof = trace_mod.Window(sync)
                 prof.start()
-            posed = drv.step()
+                if tracer is not None:
+                    tracer.drain()
+                    tracer.set_tracing(True)
+            n, posed = drv.step()
             c1 = time.perf_counter() - w0
             k = len(calls)
             calls.append((c0, c1))
+            call_frames.append(n)
             if posed and first_pose is None:
                 first_pose = c1
             if prof is not None:
-                prof.frames += 1
+                prof.frames += n
                 prof_calls.append(k)
                 if prof.frames >= PROFILE_FRAMES:
-                    summary = prof.stop()
+                    summary, recorded = stop_window()
                     prof = None
             elif span is not None and summary is None:
-                span_frames += 1
+                span_frames += n
         if prof is not None:
-            summary = prof.stop()
+            summary, recorded = stop_window()
+        if clock is not None:
+            device = clock.stop()
     finally:
+        if clock is not None:
+            clock.stop()
+        if tracer is not None:
+            tracer.set_tracing(False)
         stash.uninstall()
         if span is not None:
             span.uninstall()
@@ -179,15 +229,17 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
     memory_peak = torch.cuda.max_memory_allocated() if cuda else 0
     fin = drv.finish()
 
-    run = Run(setup_s=setup_s, calls=calls,
-              window_s=window_s, first_pose_s=first_pose)
+    run = Run(setup_s=setup_s, calls=calls, call_frames=call_frames,
+              window_s=window_s, first_pose_s=first_pose, device=device)
     if span is not None:
         run.spans = [(n, t, s - w0, e - w0) for n, t, s, e in span.records]
         run.span_frames = span_frames
         run.trace = summary
         if summary is not None:
-            run.fast_bound_ms = _fast_bound(traffic, prof_calls,
+            run.fast_bound_ms = _fast_bound(drv, prof_calls,
                                             cell.config["engine"]["orb"])
+        if recorded is not None:
+            run.program_spans, run.counters = recorded
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
     for m in cell.metrics(kind):
@@ -199,24 +251,22 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    values = correct.compare(stash, cell.config)
+    values = correct.compare(stash, checks, cell.config)
     t_ref = time.perf_counter() - t_ref
-    ok, checks = correct.judge(values, cell.config["limits"])
+    ok, judged = correct.judge(values, cell.config["limits"])
     lines = []
     if first_pose is None:
         ok = False
         lines.append("no pose reached the host in the window")
-    kept = stash.items("frontend")
     info = dict(first_pose_s=first_pose, render_s=render_s,
                 reference_s=t_ref, calls=len(calls),
+                host=_host_clock(run), device_window=device,
                 setup_parts=dict(start_to_run=t_entry - t_start,
                                  driver_setup=t_setup),
-                ate_m=_ate(fin["trajectory"], traffic),
+                ate_m=_ate(fin["trajectory"], fin["centres"]),
                 posed_frames=len(fin["trajectory"]),
                 landmarks=fin["landmarks"], keyframes=fin["keyframes"],
-                keypoints_per_frame=(sum(int(f.feat.valid.sum())
-                                         for _, f in kept) / len(kept)
-                                     if kept else None))
+                **correct.info(stash, checks))
     attempted = run.frames()
     posed = len(fin["trajectory"])
     result = dict(correct=ok, attempted=attempted,
@@ -235,9 +285,9 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
             device_ops=[[n, s] for n, s in summary["device_ops"]],
             idle_gaps=[[n, s] for n, s in summary["idle_gaps"]])
     result["info"] = info
-    result["checks"] = checks
+    result["checks"] = judged
     lines += [f"check {k}: {c['value']} (limit {c['limit']})"
-              for k, c in checks.items()]
+              for k, c in judged.items()]
     return result, lines
 
 

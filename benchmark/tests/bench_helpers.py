@@ -13,7 +13,13 @@ for p in (str(ROOT), str(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-from harness.spec import Cell  # noqa: E402
+from harness.spec import Cell, load_module  # noqa: E402
+
+
+def check(name: str):
+    """The check module ``checks/<name>.py``."""
+    return load_module(BENCH / "checks" / f"{name}.py", "test_check_" + name)
+
 
 def small_cell(name: str, width=320, height=240, features=500, levels=4,
                lap=120, root=ROOT) -> Cell:

@@ -23,7 +23,7 @@ def test_rate_is_over_the_whole_window():
     # included.
     run = Run(setup_s=1.0, window_s=10.0, first_pose_s=2.0,
               calls=[(0, 1), (1, 2), (2, 3), (3, 10)])
-    assert _reader("tum_fr1.steady", "frames_per_s")(run) == \
+    assert _reader("tum_fr1.steady", "host.frames_per_s")(run) == \
         pytest.approx(0.4)
 
 
@@ -34,7 +34,7 @@ def test_p95_is_over_every_call():
         calls.append((t, t + m / 1e3))
         t += m / 1e3
     run = Run(setup_s=1.0, window_s=t, first_pose_s=None, calls=calls)
-    got = _reader("tum_fr1.steady", "frame_ms_p95")(run)
+    got = _reader("tum_fr1.steady", "host.frame_ms_p95")(run)
     assert got == pytest.approx(np.percentile(ms, 95))
     # Stalls move it: the tail is not taken over tracked frames only.
     calls[3] = (calls[3][0], calls[3][0] + 5.0)
@@ -43,7 +43,7 @@ def test_p95_is_over_every_call():
     calls[11] = (calls[11][0], calls[11][0] + 5.0)
     calls[13] = (calls[13][0], calls[13][0] + 5.0)
     calls[15] = (calls[15][0], calls[15][0] + 5.0)
-    assert _reader("tum_fr1.steady", "frame_ms_p95")(run) > 1000
+    assert _reader("tum_fr1.steady", "host.frame_ms_p95")(run) > 1000
 
 
 class _Out:
@@ -69,13 +69,15 @@ class _ScriptedSystem:
 
 
 def test_first_pose_counts_a_backfilled_pose():
-    from harness.driver import Driver
-    from harness.traffic import generate
     cell = small_cell("tum_fr1.steady", width=160, height=120, lap=6)
-    drv = Driver(None, generate(cell.traffic, cell.config), "cpu")
+    driver = cell.driver()
+    drv = driver.Driver(None, driver.generate(cell.traffic, cell.config),
+                        "cpu")
     drv.system = _ScriptedSystem()
-    assert [drv.step() for _ in range(6)] == [False, False, False, True,
-                                              True, True]
+    steps = [drv.step() for _ in range(6)]
+    assert [posed for _, posed in steps] == [False, False, False, True,
+                                             True, True]
+    assert [n for n, _ in steps] == [1] * 6
 
 
 def test_trace_summary_counts_and_gaps():
@@ -128,3 +130,121 @@ def test_readers_of_spans():
     assert r("tum_fr1.steady", "mapping.ms_per_keyframe")(run) == \
         pytest.approx(400.0)
     assert r("tum_fr1.steady", "init.ms")(run) == pytest.approx(450.0)
+
+
+def test_a_call_counts_the_camera_frames_it_handed_over():
+    run = Run(setup_s=1.0, window_s=10.0, first_pose_s=2.0,
+              calls=[(0, 4), (4, 10)], call_frames=[2, 2])
+    assert run.frames() == 4
+    assert _reader("tum_fr1.steady", "host.frames_per_s")(run) == \
+        pytest.approx(0.4)
+
+
+MS = 1_000_000
+
+
+def test_device_time_is_the_union_over_every_frame():
+    """The C library merges the device intervals: overlaps count once;
+    the reader spreads the union over every frame of the window and
+    reads nothing where a record was dropped."""
+    import ctypes
+    from harness import devclock
+    lib = ctypes.CDLL(str(devclock.build()))
+    lib.dc_add.argtypes = [ctypes.c_uint64, ctypes.c_uint64]
+    lib.dc_reset()
+    for s, e in [(10 * MS, 11 * MS), (0, 2 * MS), (1 * MS, 3 * MS),
+                 (2 * MS, 2 * MS + 500)]:
+        lib.dc_add(s, e)
+    got = devclock.busy(lib)
+    assert got["busy_s"] == pytest.approx(4e-3)
+    assert got["events"] == 4 and got["dropped"] == 0 and not got["failed"]
+    lib.dc_reset()
+    assert devclock.busy(lib)["events"] == 0
+    read = _reader("tum_fr1.steady", "device_ms_per_frame")
+    run = Run(setup_s=1.0, window_s=0.02, first_pose_s=None,
+              calls=[(0, 0.005), (0.005, 0.012)], call_frames=[1, 1],
+              device=got)
+    assert read(run) == pytest.approx(2.0)
+    run.device = dict(got, dropped=3)
+    assert read(run) is None
+    run.device = None
+    assert read(run) is None
+
+
+def test_a_range_on_the_device_is_no_launch_and_no_busy_time():
+    """The profiler's device-side annotation of a ``slam.*`` range covers
+    the kernels under it: it is neither a launch nor busy time, and the
+    gap under the range goes to the range."""
+    events = [("kernel_a", True, 0, 1 * MS), ("kernel_b", True, 5 * MS,
+                                               6 * MS),
+              ("slam.tracking", False, 0, 6 * MS)]
+    plain = trace.summarize(events, wall_s=0.01)
+    annotated = trace.summarize(
+        events + [("slam.tracking", True, 0, 6 * MS)], wall_s=0.01)
+    assert annotated["launches"] == plain["launches"] == 2
+    assert annotated["busy_s"] == plain["busy_s"] == pytest.approx(2e-3)
+    assert dict(annotated["device_ops"]) == dict(plain["device_ops"])
+    assert dict(annotated["idle_gaps"]) == {"slam.tracking":
+                                            pytest.approx(4e-3)}
+    assert annotated["idle_by_range"] == pytest.approx(
+        {"slam.tracking": 4e-3, "": 0.0})
+
+
+def test_without_ranges_the_gaps_are_named_as_before():
+    events = [("kernel_a", True, 0, 1 * MS), ("kernel_b", True, 5 * MS,
+                                               6 * MS)]
+    s = trace.summarize(events, wall_s=0.01)
+    assert dict(s["idle_gaps"]) == {"host (no traced call)":
+                                    pytest.approx(4e-3)}
+    assert s["idle_by_range"] is None
+
+
+def test_readers_of_the_programs_ranges_and_counters():
+    # Kernels at 0-1, 3-4, 6-7, 10-11, 20-21, 23-24, 30-31 ms under the
+    # ranges of tests/test_bench_program.py's two frames.
+    kernels = [(f"k{i}", True, s * MS, e * MS) for i, (s, e) in enumerate(
+        [(0, 1), (3, 4), (6, 7), (10, 11), (20, 21), (23, 24), (30, 31)])]
+    ranges = [("slam.frame", False, 0, 12 * MS),
+              ("slam.tracking", False, int(1.5 * MS), int(5.5 * MS)),
+              ("slam.mapping", False, 8 * MS, 9 * MS),
+              ("slam.frame", False, 18 * MS, 29 * MS),
+              ("slam.frontend", False, int(21.5 * MS), int(22.5 * MS)),
+              ("slam.lagged", False, 25 * MS, 29 * MS),
+              ("slam.loop", False, 27 * MS, 28 * MS)]
+    s = trace.summarize(kernels + ranges, wall_s=0.031)
+    run = Run(setup_s=0, calls=[(0, 0.01), (0.01, 0.031)], window_s=0.031,
+              first_pose_s=None, trace=dict(s, frames=2),
+              program_spans=[], counters={"sync.need_kf": 3,
+                                          "sync.track_inliers": 2,
+                                          "frames": 2, "keyframes": 1})
+    r = _reader
+    assert r("tum_fr1.steady", "tracking.idle_ms_per_frame")(run) == \
+        pytest.approx(2.0)                       # 1-3, 4-6 ms
+    assert r("tum_fr1.steady", "mapping.idle_ms_per_frame")(run) == \
+        pytest.approx(1.5)                       # 7-10 ms
+    assert r("tum_fr1.steady", "frontend.idle_ms_per_frame")(run) == \
+        pytest.approx(1.0)                       # 21-23 ms
+    assert r("tum_fr1.steady", "host.orchestration_idle_ms_per_frame")(
+        run) == pytest.approx(3.0)               # the loop's 24-30 ms
+    assert r("tum_fr1.steady", "device.untraced_idle_pct")(run) == \
+        pytest.approx(100 * 9 / 24)              # 11-20 of 24 ms idle
+    assert r("tum_fr1.steady", "host.named_syncs_per_frame")(run) == 2.5
+    # slam.polish counts as mapping.
+    polish = trace.summarize(
+        kernels + [("slam.polish" if n == "slam.mapping" else n, d, s0, s1)
+                   for n, d, s0, s1 in ranges], wall_s=0.031)
+    run.trace = dict(polish, frames=2)
+    assert r("tum_fr1.steady", "mapping.idle_ms_per_frame")(run) == \
+        pytest.approx(1.5)
+
+
+@pytest.mark.parametrize("name", [
+    "tracking.idle_ms_per_frame", "frontend.idle_ms_per_frame",
+    "mapping.idle_ms_per_frame", "host.orchestration_idle_ms_per_frame",
+    "device.untraced_idle_pct", "host.named_syncs_per_frame"])
+def test_without_the_programs_tracer_its_readers_read_nothing(name):
+    s = trace.summarize([("kernel_a", True, 0, MS),
+                         ("kernel_b", True, 3 * MS, 4 * MS)], wall_s=0.01)
+    run = Run(setup_s=0, calls=[(0, 0.01)], window_s=0.01,
+              first_pose_s=None, trace=dict(s, frames=1))
+    assert _reader("tum_fr1.steady", name)(run) is None

@@ -89,11 +89,81 @@ def test_every_cell_reports_what_the_contract_asks(bench):
         assert set(cell.config["limits"]) == {
             "frontend_mismatch_pct", "match_mismatch_pct", "pose_gap_px",
             "ba_gap_px", "tri_gap_rel"}
+        driver = cell.driver()
+        assert callable(driver.generate) and isinstance(driver.SITES, dict)
+        for attr in ("setup", "step", "images", "finish"):
+            assert callable(getattr(driver.Driver, attr))
+        for name, chk in cell.checks().items():
+            assert NAME.match(chk.STAGE) and chk.SAMPLE > 0, name
+            assert callable(chk.keep) and callable(chk.value), name
         for name in cell.spans():
             assert (BENCH / "spans" / f"{name}.json").is_file()
 
 
-def test_new_files_are_picked_up_without_a_code_edit(tmp_path):
+TOY_PROGRAM = """
+def work(k):
+    return 2 * k
+"""
+
+TOY_DRIVER = """
+import time
+
+import numpy as np
+
+import toy_program
+from send_slam_tpu_torch.utils import profiling
+
+# The toy program's one stage, looked up in its own namespace.
+SITES = {"toy": [("toy_program", "work")]}
+
+
+def generate(traffic, config, workers):
+    return dict(lanes=int(traffic["lanes"]))
+
+
+class Driver:
+    def __init__(self, engine_cfg, recording, device):
+        self.lanes = recording["lanes"]
+        self.k = 0
+
+    def setup(self):
+        pass
+
+    def step(self):
+        with profiling.span("slam.toy", self.k):
+            profiling.count("sync.toy", 3)
+            toy_program.work(self.k)
+        time.sleep(1e-3)
+        self.k += 1
+        return self.lanes, True
+
+    def images(self, k):
+        return [np.zeros((120, 160), np.uint8)] * self.lanes
+
+    def finish(self):
+        traj = [(k, np.array([0.1 * k, 0.0, 0.0])) for k in range(self.k)]
+        return dict(landmarks=0, keyframes=0, trajectory=traj,
+                    centres=[p for _, p in traj])
+"""
+
+TOY_CHECK = """
+STAGE = "toy"
+SAMPLE = 4
+SITES = []
+
+
+def keep(args, kwargs, out):
+    return out
+
+
+def value(items, config):
+    return float(len(items))
+"""
+
+
+def test_new_files_are_picked_up_without_a_code_edit(tmp_path,
+                                                      monkeypatch):
+    import run
     shutil.copytree(BENCH, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -117,11 +187,11 @@ def test_new_files_are_picked_up_without_a_code_edit(tmp_path):
                                    chips=1, why="a test"))
     bench["per_layer"].append(dict(name="calls.count", unit="calls",
                                    better="higher", source="host_clock",
-                                   layer="device", moves="frames_per_s",
+                                   layer="device", moves="device_ms_per_frame",
                                    workloads=["other_cam.explore"]))
     bench["per_layer"].append(dict(name="lanes.ms_per_frame", unit="ms",
                                    better="lower", source="program_span",
-                                   layer="lanes", moves="frames_per_s",
+                                   layer="lanes", moves="device_ms_per_frame",
                                    workloads=["other_cam.explore"]))
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     (tmp_path / "benchmark/spans/lanes.json").write_text(json.dumps(
@@ -147,6 +217,87 @@ def test_new_files_are_picked_up_without_a_code_edit(tmp_path):
                                 "multicam_slam_step")]
     assert ("send_slam_tpu_torch.models.system", "track_frame") in \
         loaded["tracking"]
+
+    # A second driver with its own recording and sites, a check that its
+    # configuration's limits name, and readers of the program's spans and
+    # counters: new files and entries only, then a whole traced run.
+    (tmp_path / "toy_program.py").write_text(TOY_PROGRAM)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    (tmp_path / "benchmark/drivers/toy.py").write_text(TOY_DRIVER)
+    (tmp_path / "benchmark/checks/toy_calls.py").write_text(TOY_CHECK)
+    (tmp_path / "benchmark/traffic/toy.json").write_text('{"lanes": 2}')
+    toy = dict(cfg, driver="toy", limits={"toy_calls": 4})
+    (tmp_path / "benchmark/configs/toy_rig.json").write_text(json.dumps(toy))
+    (tmp_path / "benchmark/metrics/toy.spans.py").write_text(
+        "def read(run):\n    return len([s for s in run.program_spans"
+        " if s[0] == 'slam.toy'])\n")
+    (tmp_path / "benchmark/metrics/toy.syncs.py").write_text(
+        "def read(run):\n    return run.counters.get('sync.toy')\n")
+    bench["configs"].append(dict(name="toy_rig", source="x",
+                                 file="benchmark/configs/toy_rig.json",
+                                 reduced=[], why="a test"))
+    bench["workloads"].append(dict(name="toy_rig.lanes", config="toy_rig",
+                                   traffic="toy", chips=1, why="a test"))
+    for name in ("toy.spans", "toy.syncs"):
+        bench["per_layer"].append(dict(
+            name=name, unit="count", better="lower",
+            source="program_counter", layer="toy", moves="device_ms_per_frame",
+            workloads=["toy_rig.lanes"]))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = Cell("toy_rig.lanes", tmp_path)
+    assert cell.driver().SITES == {"toy": [("toy_program", "work")]}
+    assert list(cell.checks()) == ["toy_calls"]
+    res, lines = run.run_cell(cell, 5, 6.0, True, device="cpu", workers=0)
+    # The toy stage's sample is full: the driver's site was sampled.
+    assert res["checks"] == {"toy_calls": dict(value=4.0, limit=4)}
+    assert res["correct"], lines
+    # Two camera frames a call: the profiler window's 40 frames are 20
+    # calls, each with one span and three named syncs.
+    assert res["metrics"]["toy.spans"]["value"] == 20
+    assert res["metrics"]["toy.syncs"]["value"] == 60
+    assert res["attempted"] == 2 * res["info"]["calls"]
+    assert res["info"]["ate_m"] == pytest.approx(0.0, abs=1e-9)
+    from send_slam_tpu_torch.utils import profiling
+    assert not profiling.tracing()
+
+
+def _code_words(path):
+    """The identifiers a file's code uses and the words of its strings,
+    docstrings left out."""
+    tree = ast.parse(path.read_text())
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name):
+            yield node.id
+        elif isinstance(node, ast.Attribute):
+            yield node.attr
+        elif isinstance(node, ast.keyword) and node.arg:
+            yield node.arg
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            yield node.name
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield from re.findall(r"[A-Za-z0-9_]+", node.value)
+
+
+def test_the_code_names_no_driver_stage_or_check():
+    """Drivers, checks and stages are found by the names the files give:
+    the harness's code names none of them."""
+    from bench_helpers import check
+    drivers = {p.stem for p in (BENCH / "drivers").glob("*.py")}
+    checks = {p.stem for p in (BENCH / "checks").glob("*.py")}
+    stages = {check(c).STAGE for c in checks}
+    assert drivers and checks and stages
+    for f in ("run.py", "harness/capture.py", "harness/correct.py"):
+        text = (BENCH / f).read_text()
+        for name in checks:
+            assert name not in text, (f, name)
+        found = set(_code_words(BENCH / f)) & (drivers | stages | checks)
+        assert not found, (f, found)
 
 
 def _imports(path):
@@ -180,10 +331,11 @@ def test_a_run_loads_no_jax():
     code = (
         "import sys; sys.path[:0] = [%r, %r]\n"
         "import run, control\n"
-        "from harness import capture, correct, spans, trace, traffic, peaks\n"
+        "from harness import capture, correct, program, spans, trace,"
+        " traffic, peaks\n"
         "from harness.spec import Cell\n"
-        "from harness.driver import Driver\n"
         "c = Cell('tum_fr1.steady')\n"
+        "c.driver(), c.checks(), program.tracer()\n"
         "[c.reader(m) for k in ('end_to_end', 'per_layer')"
         " for m in c.metrics(k)]\n"
         "print(','.join(run.forbidden_modules()))\n"
