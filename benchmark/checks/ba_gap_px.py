@@ -16,6 +16,11 @@ ill-conditioned that float32's rounding alone moves their result by
 some 1e-3 px on the card. A kept map is the references to the arrays
 the adjustment reads: the program replaces a map's arrays and never
 writes into them, so nothing is copied inside the window.
+
+Control: bundle adjustment's residual, weight and Jacobian planes,
+float32 work that is no matrix product, are rounded to bfloat16 where
+they are produced, as a fused kernel with bfloat16 operands and float32
+sums would take them.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from harness.capture import bind
 from harness.correct import intrinsics, to_np
@@ -101,3 +107,20 @@ def gap_px(items, cam: Dict, scale_factor: float) -> Optional[float]:
 def value(items, config: Dict) -> Optional[float]:
     engine = config["engine"]
     return gap_px(items, engine["camera"], engine["orb"]["scale_factor"])
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def obs_terms_bf16(orig):
+    def terms(*a, **kw):
+        *planes, pz = orig(*a, **kw)
+        return tuple(_bf16(p) for p in planes) + (pz,)
+    return terms
+
+
+def CONTROL(patch) -> None:
+    """The bfloat16 planes where ``local_ba`` looks ``_obs_terms`` up."""
+    from send_slam_tpu_torch.models import local_ba
+    patch(local_ba, "_obs_terms", obs_terms_bf16(local_ba._obs_terms))

@@ -2,6 +2,9 @@
 matcher calls, the share (%) matched otherwise.
 
 Stage ``match``: the descriptor matcher as tracking calls it.
+
+No control of its own: the TF32 switch keeps products of 0/1 bits exact,
+so the control leaves this an exact comparison.
 """
 
 from __future__ import annotations

@@ -5,6 +5,11 @@ under the program's pose and under the float64 reference's.
 Stage ``gn``: the robust pose-only Gauss-Newton tracking runs (both
 passes, the init backfill's included; relocalization binds the function
 into its own namespace, and its calls are not sampled).
+
+Control: the robust pose Gauss-Newton, which the program runs on the
+card as one hand-written kernel that TF32 does not reach, is put in its
+place as its plain PyTorch version (``pose_only_gn_plain``), whose
+products TF32 does reach.
 """
 
 from __future__ import annotations
@@ -57,3 +62,10 @@ def gap_px(items, cam: Dict) -> Optional[float]:
 
 def value(items, config: Dict) -> Optional[float]:
     return gap_px(items, config["engine"]["camera"])
+
+
+def CONTROL(patch) -> None:
+    """The plain pose Gauss-Newton where ``tracking`` looks the kernel's
+    entry up (relocalization's bound name is not reached)."""
+    from send_slam_tpu_torch.models import tracking
+    patch(tracking, "pose_only_gn", tracking.pose_only_gn_plain)

@@ -5,6 +5,9 @@ distance from the first camera.
 
 Stage ``tri``: the two-view triangulation of new landmarks that keyframe
 insertion runs against each earlier keyframe.
+
+Control: the new landmarks' triangulation, which the program forms and
+solves in float64, is put in its place in float32.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from harness.capture import bind
 from harness.correct import intrinsics, to_np
@@ -73,3 +77,25 @@ def gap_rel(items, cam: Dict) -> Optional[float]:
 
 def value(items, config: Dict) -> Optional[float]:
     return gap_rel(items, config["engine"]["camera"])
+
+
+def triangulate_batch_f32(P1, P2, x1, x2):
+    """The linear triangulation's normal equations (the DLT rows with the
+    point's fourth coordinate 1) formed and solved in float32."""
+    P1, P2, x1, x2 = (v.float() for v in (P1, P2, x1, x2))
+    rows = []
+    for P, x in ((P1, x1), (P2, x2)):
+        r2 = P[..., 2, :].unsqueeze(-2)
+        rows.append(x[..., 0:1] * r2 - P[..., 0, :].unsqueeze(-2))
+        rows.append(x[..., 1:2] * r2 - P[..., 1, :].unsqueeze(-2))
+    A = torch.stack(torch.broadcast_tensors(*rows), -2)      # (N, 4, 4)
+    M, b = A[..., :3], -A[..., 3]
+    MtM = M.transpose(-1, -2) @ M
+    Mtb = (M * b[..., None]).sum(-2)
+    return torch.linalg.solve_ex(MtM, Mtb[..., None])[0][..., 0]
+
+
+def CONTROL(patch) -> None:
+    """The float32 triangulation where ``local_mapping`` looks it up."""
+    from send_slam_tpu_torch.models import local_mapping
+    patch(local_mapping, "triangulate_batch", triangulate_batch_f32)

@@ -15,9 +15,11 @@ import numpy as np
 from harness.traffic import generate  # noqa: F401  (the driver's recording)
 from send_slam_tpu_torch.models.system import TRACKING_OK, System
 
-# The comparison's sites that this path adds to a check's own: none, the
-# System looks every stage up where the checks name it.
+# The comparison's sites and the span targets that this path adds to a
+# check's and a span's own: none, the System looks every stage up where
+# the checks and the spans name it.
 SITES = {}
+SPANS = {}
 
 
 class Driver:
@@ -48,8 +50,8 @@ class Driver:
 
     def finish(self) -> dict:
         """The map's fill at the window's close, then the session drained:
-        the streamed trajectory as (session frame, position) pairs and the
-        true camera centre of each."""
+        its one lane, the streamed trajectory as (session frame, position)
+        pairs and the true camera centre of each."""
         m = self.system.map
         fill = dict(landmarks=int(m.n_landmarks()),
                     keyframes=int(m.kf_valid.sum()))
@@ -59,5 +61,6 @@ class Driver:
             traj[int(round(ts * self.traffic.fps))] = np.asarray(pos)
         traj = sorted(traj.items())
         tr = self.traffic
-        return dict(fill, trajectory=traj,
-                    centres=[tr.centres[tr.index(k)] for k, _ in traj])
+        return dict(fill, lanes=[dict(
+            trajectory=traj,
+            centres=[tr.centres[tr.index(k)] for k, _ in traj])])

@@ -1,10 +1,13 @@
 """Spans taken from the benchmark's side: ``spans/<span>.json`` names the
 program's functions, as their callers look them up (a module attribute,
-or ``Class.method``), whose calls make up the span. A traced run installs
-the spans that its cell's per-layer readers name (``SPANS``). While
-installed, every call of one is timed on the host clock between two
-device synchronisations, and recorded as (span, target, start, end) in
-seconds of ``time.perf_counter``.
+or ``Class.method``), whose calls make up the span. A driver adds
+targets of its own to a span (the driver's ``SPANS``: {span: [(module,
+attribute), ...]}), for a path that binds the span's function into its
+own namespace. A traced run installs the spans that its cell's
+per-layer readers name (the readers' ``SPANS``). While installed, every
+call of one is timed on the host clock between two device
+synchronisations, and recorded as (span, target, start, end) in seconds
+of ``time.perf_counter``.
 """
 
 from __future__ import annotations
@@ -18,11 +21,17 @@ from typing import List, Tuple
 import torch
 
 
-def load(spans_dir: Path, names):
-    """[(span name, [(module, attribute path), ...])] of the named spans."""
-    return [(n, [tuple(t) for t in json.loads(
-        (spans_dir / f"{n}.json").read_text())["targets"]])
-        for n in sorted(set(names))]
+def load(spans_dir: Path, names, driver_spans):
+    """[(span name, [(module, attribute path), ...])] of the named spans:
+    each span's file's targets, then the driver's for it."""
+    out = []
+    for n in sorted(set(names)):
+        targets = [tuple(t) for t in json.loads(
+            (spans_dir / f"{n}.json").read_text())["targets"]]
+        targets += [tuple(t) for t in driver_spans.get(n, ())
+                    if tuple(t) not in targets]
+        out.append((n, targets))
+    return out
 
 
 class Spans:

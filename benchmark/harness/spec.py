@@ -7,20 +7,23 @@
   ``generate(traffic, config, workers)``; ``Driver(engine_cfg,
   recording, device)`` with ``setup()``, ``step()`` (camera frames
   handed over, whether the call returned a pose), ``images(k)`` (what
-  call k handed over) and ``finish()`` (the map's fill, the streamed
-  trajectory and the true centres of its frames); and ``SITES``, the
-  comparison's sites it adds to a stage;
+  call k handed over) and ``finish()`` (the map's fill, and ``lanes``:
+  per lane, its streamed trajectory and the true centres of its frames,
+  {trajectory, centres}); ``SITES``, the comparison's sites it adds to a
+  stage, and ``SPANS``, the targets it adds to a span;
 - ``traffic/<traffic>.json``: the parameters of the driver's generator;
 - ``checks/<number>.py``, one per key of the configuration's ``limits``:
   a number the comparison judges (``harness/capture.py``,
-  ``harness/correct.py``);
+  ``harness/correct.py``), and, optionally, its stage's control
+  (``CONTROL``, ``control.py``);
 - ``metrics/<metric>.py``: a reader ``read(run)`` per metric, end to end
   or per layer, returning a number or None, and the spans it reads
   (``SPANS``, a tuple of names; none when left out);
 - ``spans/<span>.json``: the program functions a span times.
 
 No list of names sits in code: a new configuration, driver, traffic
-mix, check, metric or span is a new file and a new entry.
+mix, check (with its control), metric or span is a new file and a new
+entry.
 """
 
 from __future__ import annotations

@@ -161,7 +161,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
     setup_s = time.perf_counter() - t_start - render_s
 
     span = spans_mod.Spans(spans_mod.load(cell.bench_dir / "spans",
-                                          cell.spans()),
+                                          cell.spans(), driver.SPANS),
                            sync=sync) if trace else None
     if span is not None:
         span.install()
@@ -222,12 +222,17 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
             clock.stop()
         if tracer is not None:
             tracer.set_tracing(False)
-        stash.uninstall()
         if span is not None:
             span.uninstall()
+        stash.uninstall()
     window_s = calls[-1][1]
     memory_peak = torch.cuda.max_memory_allocated() if cuda else 0
     fin = drv.finish()
+    lanes = fin["lanes"]
+    posed = sum(len(ln["trajectory"]) for ln in lanes)
+    # Each lane aligned on its own: lanes keep their own gauge until a
+    # merge. The worst lane's ATE is the run's.
+    lane_ate = [_ate(ln["trajectory"], ln["centres"]) for ln in lanes]
 
     run = Run(setup_s=setup_s, calls=calls, call_frames=call_frames,
               window_s=window_s, first_pose_s=first_pose, device=device)
@@ -263,12 +268,12 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
                 host=_host_clock(run), device_window=device,
                 setup_parts=dict(start_to_run=t_entry - t_start,
                                  driver_setup=t_setup),
-                ate_m=_ate(fin["trajectory"], fin["centres"]),
-                posed_frames=len(fin["trajectory"]),
+                ate_m=max((a for a in lane_ate if a is not None),
+                          default=None),
+                lane_ate_m=lane_ate, posed_frames=posed,
                 landmarks=fin["landmarks"], keyframes=fin["keyframes"],
                 **correct.info(stash, checks))
     attempted = run.frames()
-    posed = len(fin["trajectory"])
     result = dict(correct=ok, attempted=attempted,
                   failed=max(attempted - posed, 0), metrics=metrics)
     if cuda:

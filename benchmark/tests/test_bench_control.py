@@ -18,10 +18,54 @@ def _failing(res):
 
 
 def test_control_is_not_correct():
-    with control.on():
-        res, _ = run_small(small_cell("tum_fr1.steady"), seconds=30.0)
+    cell = small_cell("tum_fr1.steady")
+    with control.on(cell):
+        res, _ = run_small(cell, seconds=30.0)
     assert not res["correct"]
     assert {"frontend_mismatch_pct", "ba_gap_px"} <= _failing(res)
+
+
+def _homes():
+    """Each check's fault, by the program's attributes it replaces."""
+    from send_slam_tpu_torch.models import local_ba, local_mapping, tracking
+    from send_slam_tpu_torch.ops import orb
+    return {"frontend_mismatch_pct": {(orb, "build_pyramid"),
+                                      (orb, "gaussian_blur")},
+            "match_mismatch_pct": set(),
+            "pose_gap_px": {(tracking, "pose_only_gn")},
+            "ba_gap_px": {(local_ba, "_obs_terms")},
+            "tri_gap_rel": {(local_mapping, "triangulate_batch")}}
+
+
+@pytest.mark.parametrize("only", [None, "frontend_mismatch_pct",
+                                  "match_mismatch_pct", "pose_gap_px",
+                                  "ba_gap_px", "tri_gap_rel"])
+def test_control_installs_the_cells_checks_controls_and_removes_them(only):
+    """``control.on(cell)`` replaces exactly what the ``CONTROL`` of each
+    of the cell's checks replaces, TF32 on, and puts all back on exit."""
+    homes = _homes()
+    cell = small_cell("tum_fr1.steady")
+    if only is not None:
+        cell.config["limits"] = {only: cell.config["limits"][only]}
+    want = set().union(*(homes[k] for k in cell.config["limits"]))
+    every = set().union(*homes.values())
+    before = {k: getattr(*k) for k in every}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    with control.on(cell):
+        assert {k for k in every if getattr(*k) is not before[k]} == want
+        assert torch.backends.cuda.matmul.allow_tf32
+    assert all(getattr(*k) is before[k] for k in every)
+    assert torch.backends.cuda.matmul.allow_tf32 == tf32
+
+
+def test_control_is_removed_when_the_body_raises():
+    from send_slam_tpu_torch.models import tracking
+    gn = tracking.pose_only_gn
+    with pytest.raises(RuntimeError):
+        with control.on(small_cell("tum_fr1.steady")):
+            assert tracking.pose_only_gn is tracking.pose_only_gn_plain
+            raise RuntimeError
+    assert tracking.pose_only_gn is gn
 
 
 def _stuck_pose(monkeypatch):

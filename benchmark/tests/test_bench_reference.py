@@ -239,6 +239,12 @@ def test_a_whole_run_is_correct():
     assert 0 < info["keypoints_per_frame"] <= 500
     assert list(res)[-1] == "checks"
     assert res["info"]["first_pose_s"] is not None
+    # The camera's one lane: nearly every frame posed, on a track that
+    # lies within centimetres of the true one once aligned.
+    assert res["failed"] == res["attempted"] - info["posed_frames"]
+    assert info["posed_frames"] >= 0.9 * res["attempted"]
+    assert info["lane_ate_m"] == [info["ate_m"]]
+    assert 0 < info["ate_m"] < 0.05
     # Without a card the device's time per frame has nothing to read; the
     # host's clock is kept in the record.
     assert set(res["metrics"]) == {"setup_s"}

@@ -86,23 +86,43 @@ def test_every_cell_reports_what_the_contract_asks(bench):
         for kind in ("end_to_end", "per_layer"):
             for m in cell.metrics(kind):
                 assert callable(cell.reader(m))
-        assert set(cell.config["limits"]) == {
-            "frontend_mismatch_pct", "match_mismatch_pct", "pose_gap_px",
-            "ba_gap_px", "tri_gap_rel"}
         driver = cell.driver()
-        assert callable(driver.generate) and isinstance(driver.SITES, dict)
+        assert callable(driver.generate)
+        assert isinstance(driver.SITES, dict) and isinstance(driver.SPANS, dict)
         for attr in ("setup", "step", "images", "finish"):
             assert callable(getattr(driver.Driver, attr))
-        for name, chk in cell.checks().items():
-            assert NAME.match(chk.STAGE) and chk.SAMPLE > 0, name
-            assert callable(chk.keep) and callable(chk.value), name
-        for name in cell.spans():
-            assert (BENCH / "spans" / f"{name}.json").is_file()
+        _check_files(cell)
+        if w["config"] == "tum_fr1_mono":
+            assert set(cell.config["limits"]) == {
+                "frontend_mismatch_pct", "match_mismatch_pct", "pose_gap_px",
+                "ba_gap_px", "tri_gap_rel"}
+
+
+def _check_files(cell):
+    """Each key of the configuration's limits names a loadable check file
+    with what the comparison needs, and a control, if any, it can call;
+    the driver's sites and spans, and every span the cell installs, are
+    given in the form the harness reads."""
+    assert cell.config["limits"]
+    for name in cell.config["limits"]:
+        assert NAME.match(name) and \
+            (cell.bench_dir / "checks" / f"{name}.py").is_file(), name
+    for name, chk in cell.checks().items():
+        assert NAME.match(chk.STAGE) and chk.SAMPLE > 0, name
+        assert all(len(tuple(s)) == 2 for s in chk.SITES), name
+        assert callable(chk.keep) and callable(chk.value), name
+        assert callable(getattr(chk, "CONTROL", callable)), name
+    driver = cell.driver()
+    for group in (driver.SITES, driver.SPANS):
+        assert isinstance(group, dict)
+        assert all(len(tuple(t)) == 2 for ts in group.values() for t in ts)
+    for name in cell.spans():
+        assert (cell.bench_dir / "spans" / f"{name}.json").is_file()
 
 
 TOY_PROGRAM = """
 def work(k):
-    return 2 * k
+    return 0.1 * k
 """
 
 TOY_DRIVER = """
@@ -113,8 +133,10 @@ import numpy as np
 import toy_program
 from send_slam_tpu_torch.utils import profiling
 
-# The toy program's one stage, looked up in its own namespace.
+# The toy program's one stage, looked up in its own namespace, and timed
+# under the tracking span beside the System's track_frame.
 SITES = {"toy": [("toy_program", "work")]}
+SPANS = {"tracking": [("toy_program", "work")]}
 
 
 def generate(traffic, config, workers):
@@ -141,9 +163,15 @@ class Driver:
         return [np.zeros((120, 160), np.uint8)] * self.lanes
 
     def finish(self):
-        traj = [(k, np.array([0.1 * k, 0.0, 0.0])) for k in range(self.k)]
-        return dict(landmarks=0, keyframes=0, trajectory=traj,
-                    centres=[p for _, p in traj])
+        # Lane 0 streams the true centres; each later lane is off by a
+        # height that alternates with the frame.
+        true = [np.array([0.1 * k, 0.02 * (k % 7), 0.0])
+                for k in range(self.k)]
+        lanes = [dict(trajectory=[
+            (k, c + np.array([0.0, 0.0, 0.01 * i * (-1) ** k]))
+            for k, c in enumerate(true)], centres=true)
+            for i in range(self.lanes)]
+        return dict(landmarks=0, keyframes=0, lanes=lanes)
 """
 
 TOY_CHECK = """
@@ -153,23 +181,93 @@ SITES = []
 
 
 def keep(args, kwargs, out):
-    return out
+    return (args[0], out)
 
 
 def value(items, config):
     return float(len(items))
 """
 
+# A sixth kind of number, with a control of its own: the stage in
+# float32, one step below the float64 it is compared against.
+TOY_GAP = """
+import numpy as np
 
-def test_new_files_are_picked_up_without_a_code_edit(tmp_path,
-                                                      monkeypatch):
-    import run
+STAGE = "toy"
+SAMPLE = 4
+SITES = []
+
+
+def keep(args, kwargs, out):
+    return (args[0], out)
+
+
+def value(items, config):
+    return max(abs(out - 0.1 * k) for k, out in items) if items else None
+
+
+def work_f32(k):
+    return float(np.float32(0.1) * np.float32(k))
+
+
+def CONTROL(patch):
+    import toy_program
+    patch(toy_program, "work", work_f32)
+"""
+
+
+def _copy_bench(tmp_path):
+    """The benchmark copied under ``tmp_path``; its BENCHMARK.json and
+    the camera configuration, as dicts."""
     shutil.copytree(BENCH, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     cfg = json.loads((BENCH / "configs" / "tum_fr1_mono.json").read_text())
-    cfg["engine"]["orb"]["n_features"] = 1200
-    (tmp_path / "benchmark/configs/other_cam.json").write_text(json.dumps(cfg))
+    return bench, cfg
+
+
+def _add_toy(tmp_path, monkeypatch, bench, cfg):
+    """A second driver with its own recording, sites, spans and two
+    lanes, two checks that its configuration's limits name (one with a
+    control), and readers of the program's spans and counters: new files
+    and entries only. Returns the toy cell."""
+    (tmp_path / "toy_program.py").write_text(TOY_PROGRAM)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    monkeypatch.delitem(sys.modules, "toy_program", raising=False)
+    (tmp_path / "benchmark/drivers/toy.py").write_text(TOY_DRIVER)
+    (tmp_path / "benchmark/checks/toy_calls.py").write_text(TOY_CHECK)
+    (tmp_path / "benchmark/checks/toy_gap.py").write_text(TOY_GAP)
+    (tmp_path / "benchmark/traffic/toy.json").write_text('{"lanes": 2}')
+    toy = dict(cfg, driver="toy", limits={"toy_calls": 4, "toy_gap": 1e-12})
+    (tmp_path / "benchmark/configs/toy_rig.json").write_text(json.dumps(toy))
+    (tmp_path / "benchmark/metrics/toy.spans.py").write_text(
+        "def read(run):\n    return len([s for s in run.program_spans"
+        " if s[0] == 'slam.toy'])\n")
+    (tmp_path / "benchmark/metrics/toy.syncs.py").write_text(
+        "def read(run):\n    return run.counters.get('sync.toy')\n")
+    bench["configs"].append(dict(name="toy_rig", source="x",
+                                 file="benchmark/configs/toy_rig.json",
+                                 reduced=[], why="a test"))
+    bench["workloads"].append(dict(name="toy_rig.lanes", config="toy_rig",
+                                   traffic="toy", chips=1, why="a test"))
+    for name in ("toy.spans", "toy.syncs"):
+        bench["per_layer"].append(dict(
+            name=name, unit="count", better="lower",
+            source="program_counter", layer="toy", moves="device_ms_per_frame",
+            workloads=["toy_rig.lanes"]))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = Cell("toy_rig.lanes", tmp_path)
+    _check_files(cell)
+    return cell
+
+
+def test_new_files_are_picked_up_without_a_code_edit(tmp_path,
+                                                      monkeypatch):
+    import run
+    bench, cfg = _copy_bench(tmp_path)
+    cam = json.loads(json.dumps(cfg))
+    cam["engine"]["orb"]["n_features"] = 1200
+    (tmp_path / "benchmark/configs/other_cam.json").write_text(json.dumps(cam))
     traffic = json.loads((BENCH / "traffic" / "steady.json").read_text())
     traffic["path_scale"] = 2.5
     (tmp_path / "benchmark/traffic/explore.json").write_text(
@@ -212,54 +310,72 @@ def test_new_files_are_picked_up_without_a_code_edit(tmp_path,
     assert "calls.count" not in [m["name"] for m in old.metrics("per_layer")]
     # The new span is installed in the new cell's traced run only.
     assert "lanes" in cell.spans() and "lanes" not in old.spans()
-    loaded = dict(spans.load(tmp_path / "benchmark/spans", cell.spans()))
+    loaded = dict(spans.load(tmp_path / "benchmark/spans", cell.spans(),
+                             {}))
     assert loaded["lanes"] == [("send_slam_tpu_torch.parallel.multicam",
                                 "multicam_slam_step")]
     assert ("send_slam_tpu_torch.models.system", "track_frame") in \
         loaded["tracking"]
+    # The camera driver adds no span target: its cell times what it did.
+    assert old.driver().SPANS == {}
 
-    # A second driver with its own recording and sites, a check that its
-    # configuration's limits name, and readers of the program's spans and
-    # counters: new files and entries only, then a whole traced run.
-    (tmp_path / "toy_program.py").write_text(TOY_PROGRAM)
-    monkeypatch.syspath_prepend(str(tmp_path))
-    (tmp_path / "benchmark/drivers/toy.py").write_text(TOY_DRIVER)
-    (tmp_path / "benchmark/checks/toy_calls.py").write_text(TOY_CHECK)
-    (tmp_path / "benchmark/traffic/toy.json").write_text('{"lanes": 2}')
-    toy = dict(cfg, driver="toy", limits={"toy_calls": 4})
-    (tmp_path / "benchmark/configs/toy_rig.json").write_text(json.dumps(toy))
-    (tmp_path / "benchmark/metrics/toy.spans.py").write_text(
-        "def read(run):\n    return len([s for s in run.program_spans"
-        " if s[0] == 'slam.toy'])\n")
-    (tmp_path / "benchmark/metrics/toy.syncs.py").write_text(
-        "def read(run):\n    return run.counters.get('sync.toy')\n")
-    bench["configs"].append(dict(name="toy_rig", source="x",
-                                 file="benchmark/configs/toy_rig.json",
-                                 reduced=[], why="a test"))
-    bench["workloads"].append(dict(name="toy_rig.lanes", config="toy_rig",
-                                   traffic="toy", chips=1, why="a test"))
-    for name in ("toy.spans", "toy.syncs"):
-        bench["per_layer"].append(dict(
-            name=name, unit="count", better="lower",
-            source="program_counter", layer="toy", moves="device_ms_per_frame",
-            workloads=["toy_rig.lanes"]))
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-
-    cell = Cell("toy_rig.lanes", tmp_path)
+    # Then a whole traced run of the toy rig.
+    cell = _add_toy(tmp_path, monkeypatch, bench, cfg)
     assert cell.driver().SITES == {"toy": [("toy_program", "work")]}
-    assert list(cell.checks()) == ["toy_calls"]
+    assert list(cell.checks()) == ["toy_calls", "toy_gap"]
+    # The driver's target joins the tracking span's own, after them.
+    loaded = dict(spans.load(tmp_path / "benchmark/spans", cell.spans(),
+                             cell.driver().SPANS))
+    assert loaded["tracking"][-1] == ("toy_program", "work")
+    assert ("send_slam_tpu_torch.models.system", "track_frame") in \
+        loaded["tracking"]
     res, lines = run.run_cell(cell, 5, 6.0, True, device="cpu", workers=0)
     # The toy stage's sample is full: the driver's site was sampled.
-    assert res["checks"] == {"toy_calls": dict(value=4.0, limit=4)}
+    assert res["checks"] == {"toy_calls": dict(value=4.0, limit=4),
+                             "toy_gap": dict(value=0.0, limit=1e-12)}
     assert res["correct"], lines
     # Two camera frames a call: the profiler window's 40 frames are 20
     # calls, each with one span and three named syncs.
     assert res["metrics"]["toy.spans"]["value"] == 20
     assert res["metrics"]["toy.syncs"]["value"] == 60
+    # The tracking span timed the driver's target (the toy calls no
+    # track_frame); the front end's, which the driver adds to, read none.
+    assert res["metrics"]["tracking.ms_per_frame"]["value"] > 0
+    assert "frontend.ms_per_frame" not in res["metrics"]
     assert res["attempted"] == 2 * res["info"]["calls"]
-    assert res["info"]["ate_m"] == pytest.approx(0.0, abs=1e-9)
+    # Every lane's poses count; the run's ATE is the worst lane's, each
+    # lane aligned on its own.
+    assert res["info"]["posed_frames"] == res["attempted"]
+    assert res["failed"] == 0
+    lane0, lane1 = res["info"]["lane_ate_m"]
+    assert lane0 == pytest.approx(0.0, abs=1e-9)
+    assert lane1 > 1e-3 and res["info"]["ate_m"] == lane1
     from send_slam_tpu_torch.utils import profiling
     assert not profiling.tracing()
+
+
+def test_a_check_brings_its_control_as_a_file(tmp_path, monkeypatch):
+    """The toy rig's ``toy_gap`` fails under ``control.on`` and only
+    there; ``control.on`` plants no check's control but the cell's."""
+    import control
+    import run
+    from send_slam_tpu_torch.ops import orb
+    cell = _add_toy(tmp_path, monkeypatch, *_copy_bench(tmp_path))
+    import toy_program
+    work, pyramid = toy_program.work, orb.build_pyramid
+    with control.on(cell):
+        assert toy_program.work is not work
+        assert orb.build_pyramid is pyramid
+        res, lines = run.run_cell(cell, 6, 2.0, False, device="cpu",
+                                  workers=0)
+    assert toy_program.work is work
+    assert not res["correct"]
+    assert res["checks"]["toy_gap"]["value"] > 1e-9
+    assert res["checks"]["toy_calls"] == dict(value=4.0, limit=4)
+    assert "check toy_gap" in lines[-1]
+    res, lines = run.run_cell(cell, 6, 2.0, False, device="cpu", workers=0)
+    assert res["correct"], lines
+    assert res["checks"]["toy_gap"]["value"] == 0.0
 
 
 def _code_words(path):
@@ -292,7 +408,8 @@ def test_the_code_names_no_driver_stage_or_check():
     checks = {p.stem for p in (BENCH / "checks").glob("*.py")}
     stages = {check(c).STAGE for c in checks}
     assert drivers and checks and stages
-    for f in ("run.py", "harness/capture.py", "harness/correct.py"):
+    for f in ("run.py", "control.py", "harness/capture.py",
+              "harness/correct.py", "harness/spans.py"):
         text = (BENCH / f).read_text()
         for name in checks:
             assert name not in text, (f, name)
