@@ -26,6 +26,12 @@ Phases, each printing one JSON line:
    valid one, points behind the camera, a 180-degree start): R and t
    within 1e-5, equal inliers and count, one launch a call, a second
    launch bit-equal;
+2b. segsum_check: the segment-sum kernel against fixed_order_sum's
+   plain version on the card under torch.equal of the bits, at the main
+   path's shapes (utils/synth.py SEGSUM_CASES: the local, steady local,
+   wide and global BA windows' seg_sum (D = 1), seg_sum_t (D = 12) and
+   seg_sum_batched_t (B = W, D = 18); the pose graph's D = 49 and D = 7),
+   one launch a call, a repeat bit-equal;
 3. kernel_times: per 640x480 frame, one launch over the 8 levels (device
    time queued behind a spin kernel, and the unqueued launch interval),
    8 one-level launches of the same kernel (both times), the plain
@@ -37,6 +43,10 @@ Phases, each printing one JSON line:
    spin kernel, the unqueued launch interval, the host's issue time) and
    the plain version (host-bound), at 1,000 points 2 x 5, 1,250 points
    4 x 5 and 16,384 points 4 x 10;
+3b. segsum_times: ms per segment sum at segsum_check's shapes, the
+   kernel behind a spin kernel (its output's zero fill included), the
+   plain version, and the bytes bound (the valid rows' values read and
+   the output written, at 3.35 TB/s);
 4. frontend_check: make_frame on the card against make_frame on the CPU
    (the plain path) on one 640x480 frame;
 5. main_path: System.track_monocular at the flagship configuration
@@ -46,7 +56,9 @@ Phases, each printing one JSON line:
    loop probe), with the kernels' launch counts read around the run (one
    FAST launch per make_frame, collapse retries included; one pose GN
    launch per pose_only_gn call, counted through the tracking and
-   relocalize modules' names). Poses are counted
+   relocalize modules' names; one segment-sum launch per CUDA
+   fixed_order_sum call, counted through the segsum and pose_graph
+   modules' names, in this phase and the loop session's). Poses are counted
    as bench.py counts them: live OK outputs, every backfill triple and
    the shutdown drain;
 5a. server_path: the drop-in backend, ``server.backend_client``'s
@@ -897,6 +909,131 @@ def check_pose_gn(where, rec):
              "per call)")
 
 
+def segsum_forms(torch, dev):
+    """(name, kernel call, plain call, bound bytes) of every segment sum
+    of utils/synth.py SEGSUM_CASES on ``dev``: each BA window's three
+    forms, as local_ba.py calls them, and the pose graph's two sums."""
+    from send_slam_tpu_torch.ops import segsum
+    from send_slam_tpu_torch.utils.synth import (
+        SEGSUM_CASES, segsum_problem, segsum_values,
+    )
+    plain = segsum.fixed_order_sum_plain
+    forms = []
+    for name in SEGSUM_CASES:
+        p = segsum_problem(name, 2020)
+        if "ids" not in p:
+            for which, D in (("h", 49), ("b", 7)):
+                seg = torch.from_numpy(p[f"{which}_seg"]).to(dev)
+                n_seg = p[f"n_{which}"]
+                v = torch.from_numpy(segsum_values(len(seg), D, 5)).to(dev)
+                idx = segsum.segment_index(seg, n_seg)
+                forms.append((
+                    f"{name}_{which}_d{D}",
+                    lambda v=v, seg=seg, n=n_seg, idx=idx:
+                        segsum.fixed_order_sum(v, seg, n, index=idx),
+                    lambda v=v, seg=seg, n=n_seg: plain(v, seg, n),
+                    4 * D * (len(seg) + n_seg)))
+            continue
+        W, N, L = p["W"], p["N"], p["L"]
+        om = segsum.ObsMap(torch.from_numpy(p["ids"]).to(dev), L)
+        seg1, c1, _ = om._seg(1)
+        segW, cW, _ = om._seg(W)
+        n_valid = int(c1[:L].sum())
+        ones = torch.ones((W * N, 1), device=dev)
+        v12 = torch.from_numpy(segsum_values(12, W * N, 1)).to(dev)
+        v18 = torch.from_numpy(segsum_values(W * 18, N, 2)).to(dev) \
+            .reshape(W, 18, N)
+        forms += [
+            (f"{name}_seg_sum_d1", lambda om=om, x=ones: om.seg_sum(x),
+             lambda x=ones, s=seg1, c=c1, L=L: plain(x, s, L, c),
+             4 * (n_valid + L)),
+            (f"{name}_seg_sum_t_d12", lambda om=om, x=v12: om.seg_sum_t(x),
+             lambda x=v12, s=seg1, c=c1, L=L: plain(x.T, s, L, c).T,
+             4 * 12 * (n_valid + L)),
+            (f"{name}_batched_d18",
+             lambda om=om, x=v18: om.seg_sum_batched_t(x),
+             lambda x=v18, s=segW, c=cW, n=W * L, W=W, L=L:
+                 plain(x.permute(0, 2, 1), s, n, c)
+                 .reshape(W, L, 18).permute(0, 2, 1),
+             4 * 18 * (n_valid + W * L))]
+    return forms
+
+
+def segsum_check(torch, segsum_cuda):
+    """Phase 2b: the segment-sum kernel against the plain version on the
+    card at every SEGSUM_CASES form: the bits equal (torch.equal of
+    their int32 views), one launch a call, a repeat bit-equal."""
+    cases = {}
+    for name, kernel, plain, _ in segsum_forms(torch, "cuda"):
+        n0 = segsum_cuda.launches
+        got = kernel()
+        again = kernel()
+        if segsum_cuda.launches != n0 + 2:
+            fail(f"segsum {name}: {segsum_cuda.launches - n0} launches for "
+                 "2 calls")
+        ref = plain()
+        if got.shape != ref.shape or got.stride() != ref.stride() \
+                or not torch.equal(got.contiguous().view(torch.int32),
+                                   ref.contiguous().view(torch.int32)):
+            fail(f"segment-sum kernel differs from its plain version: {name}")
+        if not torch.equal(got, again):
+            fail(f"segment-sum kernel: a repeat of {name} is not bit-equal")
+        cases[name] = dict(shape=list(got.shape), equal=True)
+    torch.cuda.synchronize()
+    return dict(comparison="torch.equal of the int32 bits; strides equal; "
+                           "repeat torch.equal", cases=cases)
+
+
+def segsum_times(torch):
+    """Phase 3b: ms per segment sum at segsum_check's forms: the kernel
+    (its output's zero fill included) behind a spin kernel, the plain
+    version the same way, and the bound of the bytes that must move."""
+    out = {}
+    for name, kernel, plain, n_bytes in segsum_forms(torch, "cuda"):
+        out[name] = dict(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 5),
+                         bound_ms=n_bytes / PEAK_BYTES_S * 1e3,
+                         bound_bytes=n_bytes)
+    return out
+
+
+@contextlib.contextmanager
+def segsum_counted():
+    """Counts, while the block runs, the fixed_order_sum calls on CUDA
+    tensors through the segsum module's name (every ObsMap sum) and the
+    pose graph's, and the segment-sum kernel's launches: ``rec["calls"]``,
+    ``rec["launches"]`` (set when the block ends)."""
+    from send_slam_tpu_torch.models import pose_graph
+    from send_slam_tpu_torch.ops import segsum, segsum_cuda
+    rec = dict(calls=0, launches=0)
+    reals = [(m, m.fixed_order_sum) for m in (segsum, pose_graph)]
+
+    def counted(real):
+        def call(values, *a, **kw):
+            if values.is_cuda:
+                rec["calls"] += 1
+            return real(values, *a, **kw)
+        return call
+
+    for m, real in reals:
+        m.fixed_order_sum = counted(real)
+    n0 = segsum_cuda.launches
+    try:
+        yield rec
+    finally:
+        rec["launches"] = segsum_cuda.launches - n0
+        for m, real in reals:
+            m.fixed_order_sum = real
+
+
+def check_segsum(where, rec):
+    """Fails unless the block that ``rec`` counted made segment sums on
+    the card and each took one kernel launch."""
+    if rec["launches"] != rec["calls"] or rec["calls"] == 0:
+        fail(f"{where}: {rec['launches']} segment-sum launches for "
+             f"{rec['calls']} fixed_order_sum calls on the card (expected "
+             "one per call)")
+
+
 def frontend_check(torch, make_frame, cfg, img):
     """Phase 3: make_frame on the card vs the plain path on the CPU."""
     gpu = make_frame(img, 0.0, cfg.orb, cfg.camera, device="cuda")
@@ -1341,7 +1478,7 @@ def loop_path(torch, System, cfg, fast_cuda):
 
     fast_cuda.launches = 0
     system.frames_extracted = 0
-    with pose_gn_counted() as gn:
+    with pose_gn_counted() as gn, segsum_counted() as sums:
         run = drive(torch, system, frames, ts, after_frame=after_frame,
                     stop=stop)
     launches, n_extracted = fast_cuda.launches, system.frames_extracted
@@ -1372,7 +1509,7 @@ def loop_path(torch, System, cfg, fast_cuda):
         polish_slices=run["polish_slices"],
         ms_per_call=ms, global_slice_memory=keep["peaks"],
         frames_through_make_frame=n_extracted, fast_launches=launches,
-        pose_gn=gn,
+        pose_gn=gn, segsum=sums,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
@@ -1383,6 +1520,7 @@ def loop_path(torch, System, cfg, fast_cuda):
             sum(st == TRACKING_OK for st in after) / max(len(after), 1))
     emit(res)
     check_pose_gn("loop path", gn)
+    check_segsum("loop path", sums)
     if launches != n_extracted or launches == 0:
         fail(f"loop path: {launches} FAST launches for {n_extracted} "
              "frames (expected one per make_frame)")
@@ -3895,7 +4033,7 @@ def main() -> int:
     )
     from send_slam_tpu_torch.models import tracking
     from send_slam_tpu_torch.ops import fast as fast_ops
-    from send_slam_tpu_torch.ops import fast_cuda, pose_gn_cuda
+    from send_slam_tpu_torch.ops import fast_cuda, pose_gn_cuda, segsum_cuda
     from send_slam_tpu_torch.ops.pyramid import build_pyramid, level_shapes
     from send_slam_tpu_torch.utils.synth import SyntheticWorld
 
@@ -3912,6 +4050,9 @@ def main() -> int:
     t0 = time.perf_counter()
     pose_gn_cuda.load()
     gn_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    segsum_cuda.load()
+    segsum_build_s = time.perf_counter() - t0
     emit(dict(phase="environment", device=name, nvidia_smi=smi,
               torch=torch.__version__, cuda=torch.version.cuda,
               kernel_library=str(fast_cuda.LIBRARY.path().name),
@@ -3921,13 +4062,19 @@ def main() -> int:
               pose_gn_build_s=gn_build_s,
               pose_gn_nvcc_s=pose_gn_cuda.LIBRARY.build_seconds,
               pose_gn_ptxas=ptxas_summary(
-                  pose_gn_cuda.LIBRARY.ptxas_report())))
+                  pose_gn_cuda.LIBRARY.ptxas_report()),
+              segsum_library=str(segsum_cuda.LIBRARY.path().name),
+              segsum_build_s=segsum_build_s,
+              segsum_nvcc_s=segsum_cuda.LIBRARY.build_seconds,
+              segsum_ptxas=ptxas_summary(
+                  segsum_cuda.LIBRARY.ptxas_report())))
 
     # --- 2 + 3. kernels vs plain on the card, and their times --------------
     kc = kernel_check(torch, fast_cuda, fast_ops, level_shapes)
     emit(dict(phase="kernel_check", **kc))
     gc = pose_gn_check(torch, tracking, pose_gn_cuda)
     emit(dict(phase="pose_gn_check", **gc))
+    emit(dict(phase="segsum_check", **segsum_check(torch, segsum_cuda)))
     cfg = flagship_config()
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
@@ -3941,6 +4088,8 @@ def main() -> int:
     emit(dict(phase="kernel_times", device=name, nvidia_smi=smi, **kt))
     gt_ms = pose_gn_times(torch, tracking, pose_gn_cuda)
     emit(dict(phase="pose_gn_times", device=name, nvidia_smi=smi, **gt_ms))
+    st_ms = segsum_times(torch)
+    emit(dict(phase="segsum_times", device=name, nvidia_smi=smi, **st_ms))
 
     # --- 4 + 5. front end and main path at the flagship config -------------
     emit(dict(phase="frontend_check",
@@ -3961,7 +4110,7 @@ def main() -> int:
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
     with keep_ba_inputs(torch, system) as kept_ba, \
-            pose_gn_counted() as main_gn:
+            pose_gn_counted() as main_gn, segsum_counted() as main_sums:
         fast_cuda.launches = 0
         run = drive(torch, system, frames, ts, after_frame=snapshot)
         launches = fast_cuda.launches
@@ -3985,7 +4134,7 @@ def main() -> int:
         keyframes=int(system._n_kf_host),
         landmarks=int(system.map.n_landmarks()),
         ate_m=ate, frames_through_make_frame=n_extracted,
-        fast_launches=launches, pose_gn=main_gn,
+        fast_launches=launches, pose_gn=main_gn, segsum=main_sums,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         mean_ms_per_tracked_frame=(statistics.fmean(run["t_ok"][1:])
@@ -4002,6 +4151,7 @@ def main() -> int:
         fail(f"{launches} FAST launches for {n_extracted} frames "
              "(expected one per make_frame)")
     check_pose_gn("main_path", main_gn)
+    check_segsum("main_path", main_sums)
 
     # --- 5a (and 6) + 5b. the server entry points at the flagship config --
     served = server_path(torch, System, fast_cuda, frames, ts, run, build_s)
@@ -4118,7 +4268,16 @@ def main() -> int:
         "bound_by": "latency: rounds x iters dependent steps",
         "library_ms": None,
         "unit": "per call: 1,250 points, 4 rounds x 5 iterations",
-        "reloc_16384_4x10": gt_ms["reloc_16384_4x10"]}]})
+        "reloc_16384_4x10": gt_ms["reloc_16384_4x10"]}, {
+        "name": "segsum", "route": "cuda",
+        "source": "send_slam_tpu_torch/csrc/segsum_kernel.cu",
+        "replaces": None, "launches": main_sums["launches"],
+        "fixed_order_sum_calls": main_sums["calls"],
+        "loop_path_launches": lp["segsum"]["launches"],
+        "loop_path_fixed_order_sum_calls": lp["segsum"]["calls"],
+        "max_abs_diff": 0.0, "bound_by": "bytes", "library_ms": None,
+        "unit": "per call, at each SEGSUM_CASES form",
+        "times": st_ms}]})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

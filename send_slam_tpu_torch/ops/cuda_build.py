@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Callable, Optional, Sequence
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -38,6 +40,24 @@ def _nvcc() -> str:
     if cand.exists():
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def tensor_ptr(owner: str, x, name: str, shape, dtype, dev) -> int:
+    """``x``'s data pointer, once it is a contiguous ``dtype`` tensor of
+    ``shape`` on ``dev``; else a TypeError or ValueError naming ``owner``
+    (the wrapper) and ``name`` (the argument)."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{owner}: {name} must be a tensor")
+    if x.device != dev:
+        raise ValueError(f"{owner}: {name} lies on {x.device}, not {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{owner}: {name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{owner}: {name} has shape {tuple(x.shape)}, "
+                         f"expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{owner}: {name} must be contiguous")
+    return x.data_ptr()
 
 
 class CudaLibrary:

@@ -18,7 +18,9 @@ import numbers
 
 import torch
 
-from send_slam_tpu_torch.ops.cuda_build import BASE_FLAGS, CSRC, CudaLibrary
+from send_slam_tpu_torch.ops.cuda_build import (
+    BASE_FLAGS, CSRC, CudaLibrary, tensor_ptr,
+)
 
 SOURCE = CSRC / "pose_gn_kernel.cu"
 NVCC_FLAGS = list(BASE_FLAGS)
@@ -38,20 +40,7 @@ load = LIBRARY.load
 
 
 def _check(x, name, shape, dtype, dev):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"pose_gn_cuda: {name} must be a tensor")
-    if x.device != dev:
-        raise ValueError(f"pose_gn_cuda: {name} lies on {x.device}, "
-                         f"X on {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"pose_gn_cuda: {name} must be {dtype}, "
-                        f"got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"pose_gn_cuda: {name} has shape "
-                         f"{tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"pose_gn_cuda: {name} must be contiguous")
-    return x.data_ptr()
+    return tensor_ptr("pose_gn_cuda", x, name, shape, dtype, dev)
 
 
 def _intrinsics(fx, fy, cx, cy, dev):

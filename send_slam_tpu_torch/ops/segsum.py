@@ -15,13 +15,22 @@ result depends only on the multiset of values in each segment, never
 on the order of the rows, and needs no host read. A segment of one or
 two rows sums exactly as ``index_add_`` does; longer ones may differ
 from it in the last bits.
+
+That is the plain version, which CPU tensors take. CUDA tensors take one
+launch of the hand-written kernel (``ops/segsum_cuda.py``,
+csrc/segsum_kernel.cu), which gives the same bits from a segment index
+built once per segment map (``segment_index``) and never reads a spill
+row.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from send_slam_tpu_torch.ops import segsum_cuda
+from send_slam_tpu_torch.utils.profiling import count
 
 
 def segment_counts(seg: torch.Tensor, n_seg: int) -> torch.Tensor:
@@ -31,13 +40,72 @@ def segment_counts(seg: torch.Tensor, n_seg: int) -> torch.Tensor:
     return counts.index_add_(0, seg, torch.ones_like(seg))
 
 
-def fixed_order_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int,
-                    counts: torch.Tensor = None) -> torch.Tensor:
-    """(R, D) values, (R,) segment ids in [0, n_seg] -> (n_seg, D) sums,
-    each in ascending-value order within its segment (spill dropped).
-    ``counts``: ``segment_counts(seg, n_seg)``, when the caller keeps it."""
+class SegmentIndex(NamedTuple):
+    """A segment map's rows in segment order, as the CUDA kernel reads
+    them. ``perm`` (R,): the valid rows (ids below n_seg), stably sorted
+    by id, then -1 for each spill row; ``offsets`` (n_seg + 1,): where
+    each segment starts in ``perm`` (the exclusive cumsum of the counts;
+    the last entry is the number of valid rows); ``long_seg``: the
+    segments of more than ``segsum_cuda.SHORT`` rows in ascending order,
+    the first ``n_long`` (0-dim) of its entries."""
+    perm: torch.Tensor
+    offsets: torch.Tensor
+    long_seg: torch.Tensor
+    n_long: torch.Tensor
+
+
+def segment_index(seg: torch.Tensor, n_seg: int,
+                  counts: torch.Tensor = None) -> SegmentIndex:
+    """The ``SegmentIndex`` of (R,) int64 ids in [0, n_seg], on their
+    device, without a host read. ``counts``: ``segment_counts(seg,
+    n_seg)``, when the caller keeps it."""
     if counts is None:
         counts = segment_counts(seg, n_seg)
+    R = seg.shape[0]
+    offsets = torch.zeros(n_seg + 1, dtype=torch.int64, device=seg.device)
+    torch.cumsum(counts[:n_seg], 0, out=offsets[1:])
+    order = torch.sort(seg, stable=True).indices
+    pos = torch.arange(R, device=seg.device)
+    valid = pos < offsets[n_seg]
+    by_seg = seg[order]
+    is_long = valid & (offsets[by_seg] == pos) \
+        & (counts[by_seg] > segsum_cuda.SHORT)
+    cap = segsum_cuda.long_capacity(R)
+    slot = torch.where(is_long, torch.cumsum(is_long, 0) - 1,
+                       torch.full_like(pos, cap - 1))
+    long_seg = torch.zeros(cap, dtype=torch.int64, device=seg.device)
+    long_seg.scatter_(0, slot, by_seg)
+    return SegmentIndex(torch.where(valid, order, torch.full_like(order, -1)),
+                        offsets, long_seg, is_long.sum())
+
+
+def fixed_order_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int,
+                    counts: torch.Tensor = None,
+                    index: Optional[SegmentIndex] = None) -> torch.Tensor:
+    """(R, D) values, (R,) segment ids in [0, n_seg] -> (n_seg, D) sums,
+    each in ascending-value order within its segment (spill dropped).
+    Values may also be (B, Rb, D), read as R = B * Rb rows block after
+    block. ``counts``: ``segment_counts(seg, n_seg)``, and ``index``:
+    ``segment_index(seg, n_seg, counts)``, when the caller keeps them.
+    CUDA tensors take one launch of the kernel, CPU tensors
+    :func:`fixed_order_sum_plain`."""
+    if values.is_cuda:
+        if index is None:
+            index = segment_index(seg, n_seg, counts)
+        out = segsum_cuda.segment_sum(values, seg, index, n_seg)
+        count("kernel.segsum")
+        return out
+    return fixed_order_sum_plain(values, seg, n_seg, counts)
+
+
+def fixed_order_sum_plain(values: torch.Tensor, seg: torch.Tensor,
+                          n_seg: int, counts: torch.Tensor = None
+                          ) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fixed_order_sum`, op by op on
+    any device (the kernel's reference on the card)."""
+    if counts is None:
+        counts = segment_counts(seg, n_seg)
+    values = values.reshape(-1, values.shape[-1])
     v, by_value = torch.sort(values, dim=0, stable=True)
     _, by_seg = torch.sort(seg[by_value], dim=0, stable=True)
     v = torch.gather(v, 0, by_seg)
@@ -54,24 +122,29 @@ class ObsMap:
         self._ok = (self.ids >= 0) & (self.ids < L)
         self._safe = torch.where(self._ok, self.ids,
                                  torch.full_like(self.ids, L))
-        self._segs: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._segs: Dict[int, Tuple[torch.Tensor, torch.Tensor,
+                                    Optional[SegmentIndex]]] = {}
 
     def _seg(self, B: int):
-        """Segment ids and counts with the rows viewed as B blocks:
-        block b's slot l is segment b * L + l."""
+        """Segment ids, counts and (on CUDA) the segment index with the
+        rows viewed as B blocks: block b's slot l is segment b * L + l.
+        Built once: the ids do not change across a BA's iterations."""
         if B not in self._segs:
             R = self._safe.shape[0]
             blk = torch.arange(R, device=self._safe.device) // (R // B)
             seg = torch.where(self._safe == self.L,
                               torch.full_like(self._safe, B * self.L),
                               blk * self.L + self._safe)
-            self._segs[B] = (seg, segment_counts(seg, B * self.L))
+            counts = segment_counts(seg, B * self.L)
+            self._segs[B] = (seg, counts,
+                             segment_index(seg, B * self.L, counts)
+                             if seg.is_cuda else None)
         return self._segs[B]
 
     def seg_sum(self, values: torch.Tensor) -> torch.Tensor:
         """(R, D) -> (L, D) per-slot sums."""
-        seg, counts = self._seg(1)
-        return fixed_order_sum(values, seg, self.L, counts)
+        seg, counts, index = self._seg(1)
+        return fixed_order_sum(values, seg, self.L, counts, index)
 
     def seg_sum_t(self, values_t: torch.Tensor) -> torch.Tensor:
         """(D, R) -> (D, L)."""
@@ -81,9 +154,9 @@ class ObsMap:
         """(B, D, Rb) -> (B, D, L) with ids viewed as (B, Rb): one
         segment sum per block."""
         B, D, Rb = values.shape
-        seg, counts = self._seg(B)
-        out = fixed_order_sum(values.permute(0, 2, 1).reshape(-1, D), seg,
-                              B * self.L, counts)
+        seg, counts, index = self._seg(B)
+        out = fixed_order_sum(values.permute(0, 2, 1), seg, B * self.L,
+                              counts, index)
         return out.reshape(B, self.L, D).permute(0, 2, 1)
 
     def gather_t(self, table_t: torch.Tensor) -> torch.Tensor:

@@ -14,9 +14,9 @@ that package), rendering bit for bit as it does:
   the previous pose, the frame count), so two worlds of one seed render
   the same frames when called in the same order.
 
-Beside them, the port's own ``pose_problem``: seeded inputs of the robust
-pose-only Gauss-Newton, for holding its CUDA kernel against the plain
-version.
+Beside them, the port's own ``pose_problem`` and ``segsum_problem``:
+seeded inputs of the robust pose-only Gauss-Newton and of the order-fixed
+segment sums, for holding their CUDA kernels against the plain versions.
 """
 
 from __future__ import annotations
@@ -444,3 +444,70 @@ def pose_problem(n: int, seed: int, *,
                 sigma2=sigma2.astype(f32) if with_sigma2 else None,
                 fx=fx, fy=fy, cx=cx, cy=cy,
                 R_true=R_true.astype(f32), t_true=t_true.astype(f32))
+
+
+# The segment sums' shapes on the main path (TUM1.yaml: N = 1,000
+# keypoints, 16,384 landmark slots): a BA window of W keyframes, its
+# valid observations (the rest are the spill slot) and the most
+# keyframes that observe one landmark; and the pose graph over 256
+# keyframe slots of which n_kf are live, with its 256 chain edges, 5
+# covisibility edges a slot and the loop edge, as
+# ``apply_loop_correction`` joins them (its longest block sums 257 rows).
+SEGSUM_CASES = {
+    "local_8": dict(W=8, N=1000, L=16384, n_valid=1000, max_obs=5),
+    "local_8_steady": dict(W=8, N=1000, L=16384, n_valid=6000, max_obs=8),
+    "wide_64": dict(W=64, N=1000, L=16384, n_valid=2000, max_obs=2),
+    "global_256": dict(W=256, N=1000, L=16384, n_valid=2000, max_obs=2),
+    "pose_graph": dict(MK=256, n_kf=15, top_k=5),
+}
+
+
+def segsum_values(rows: int, cols: int, seed: int) -> np.ndarray:
+    """(rows, cols) float32 over twelve decades, signs mixed."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(rows, cols))
+            * 10.0 ** rng.uniform(-6, 6, (rows, 1))).astype(np.float32)
+
+
+def segsum_problem(name: str, seed: int) -> dict:
+    """Segment ids of a ``SEGSUM_CASES`` entry (numpy int64).
+
+    A BA window: ``ids`` (W * N,), keyframe-major, in [-1, L]; a valid
+    row holds a landmark slot, each landmark observed by 1..max_obs
+    distinct keyframes at one keypoint each; invalid rows hold L (the
+    spill slot), one in a hundred -1. The pose graph: ``h_seg`` (4 E,)
+    over MK * MK blocks and ``b_seg`` (2 E,) over MK slots, as
+    ``optimize_pose_graph`` builds them."""
+    c = SEGSUM_CASES[name]
+    rng = np.random.default_rng(seed)
+    if "MK" in c:
+        MK, n_kf, k = c["MK"], c["n_kf"], c["top_k"]
+        slot = np.arange(MK)
+        # The chain joins each slot to the last live one before it; a
+        # dead slot's covisibility edges go to slots 0..k-1, where
+        # ``stable_topk`` breaks the ties of an empty row.
+        ci = np.clip(np.minimum(slot, n_kf) - 1, 0, None)
+        ki = np.repeat(slot, k)
+        kj = np.concatenate([
+            (i + rng.choice(np.arange(1, n_kf), k, replace=False)) % n_kf
+            if i < n_kf else np.arange(k) for i in slot])
+        ii = np.concatenate([ci, ki, [n_kf - 1]])
+        jj = np.concatenate([slot, kj, [0]])
+        h_seg = np.concatenate([ii * MK + ii, jj * MK + jj, ii * MK + jj,
+                                jj * MK + ii])
+        return dict(h_seg=h_seg.astype(np.int64),
+                    b_seg=np.concatenate([ii, jj]).astype(np.int64),
+                    n_h=MK * MK, n_b=MK)
+    W, N, L = c["W"], c["N"], c["L"]
+    ids = np.full((W, N), L, np.int64)
+    ids[rng.random((W, N)) < 0.01] = -1
+    free = [list(rng.permutation(N)) for _ in range(W)]
+    lms = rng.permutation(L)
+    n, k = 0, 0
+    while n < c["n_valid"]:
+        n_obs = min(int(rng.integers(1, c["max_obs"] + 1)),
+                    c["n_valid"] - n)
+        for w in rng.choice(W, n_obs, replace=False):
+            ids[w, free[w].pop()] = lms[k]
+        n, k = n + n_obs, k + 1
+    return dict(ids=ids.reshape(-1), L=L, W=W, N=N)
