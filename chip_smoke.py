@@ -7,46 +7,32 @@ Needs one CUDA card (exits non-zero without one, printing no result).
 Phases, each printing one JSON line:
 
 1. environment: the card, its power limit (nvidia-smi), the nvcc builds
-   of the CUDA FAST and pose Gauss-Newton kernels from
-   send_slam_tpu_torch/csrc/ and their -Xptxas -v reports (registers,
-   shared memory, spills);
-2. kernel_check: the FAST kernel held against its plain PyTorch version
-   on the card under torch.equal (every level shape of a 640x480 frame,
-   a ragged 100x128 and a 7x9 image, a batch of 3; thresholds 7 and 20;
-   raw and NMS maps), then one launch over the whole 8-level pyramid,
-   one over a batch of 8 such pyramids, each lanes path's own launch at
-   its batch, levels and data (phases 15 and 17), one launch over
-   the 8-level pyramid of a textured frame at scales 1.3 and 1.5 (odd
-   level shapes: 369x492, 284x379, ... at 1.3), and one over a 752x480
-   frame's 8 levels at 1.2 (EuRoC's width: 480x752, 400x625, ...,
-   125x200);
-2a. pose_gn_check: the pose Gauss-Newton kernel against pose_only_gn's
-   plain version on the card (POSE_GN_CASES: the main path's 1,000 and
-   1,250 points, relocalization's 16,384 with sigma2 None, no points, no
-   valid one, points behind the camera, a 180-degree start): R and t
-   within 1e-5, equal inliers and count, one launch a call, a second
-   launch bit-equal;
-2b. segsum_check: the segment-sum kernel against fixed_order_sum's
-   plain version on the card under torch.equal of the bits, at the main
-   path's shapes (utils/synth.py SEGSUM_CASES: the local, steady local,
-   wide and global BA windows' seg_sum (D = 1), seg_sum_t (D = 12) and
-   seg_sum_batched_t (B = W, D = 18); the pose graph's D = 49 and D = 7),
-   one launch a call, a repeat bit-equal;
-3. kernel_times: per 640x480 frame, one launch over the 8 levels (device
-   time queued behind a spin kernel, and the unqueued launch interval),
-   8 one-level launches of the same kernel (both times), the plain
-   version, batches of 8 and of 2 pyramids (the kernel and the plain
-   version), scale_path's launch (8 levels at 1.3; the kernel and the
-   plain version), dataset_euroc's (8 levels of 752x480), and the bytes
-   and operations bounds (the operations counted on the timed inputs);
-3a. pose_gn_times: ms per pose Gauss-Newton call, the kernel (behind a
-   spin kernel, the unqueued launch interval, the host's issue time) and
-   the plain version (host-bound), at 1,000 points 2 x 5, 1,250 points
-   4 x 5 and 16,384 points 4 x 10;
-3b. segsum_times: ms per segment sum at segsum_check's shapes, the
-   kernel behind a spin kernel (its output's zero fill included), the
-   plain version, and the bytes bound (the valid rows' values read and
-   the output written, at 3.35 TB/s);
+   of the hand-written kernels (KERNELS: FAST, the pose Gauss-Newton and
+   the segment sum, from send_slam_tpu_torch/csrc/) and their -Xptxas -v
+   reports (registers, shared memory, spills);
+2. kernel_check: each kernel against its plain PyTorch version on the
+   card at every case of its KERNELS row, one launch a call and a repeat
+   bit-equal. FAST under torch.equal (every level shape of a 640x480
+   frame, a ragged 100x128 and a 7x9 image, batches of 3; thresholds 7
+   and 20; raw and NMS maps; the whole 8-level pyramid in one launch, 8
+   and 2 lanes of it, the pyramids at scales 1.3 and 1.5 and of a
+   752x480 frame, each lanes path's own launch at its batch, levels and
+   data, a bench-scene frame); the pose Gauss-Newton within 1e-5 in R and
+   t with equal inliers and count (POSE_GN_CASES: the main path's 1,000
+   and 1,250 points, relocalization's 16,384 with sigma2 None, no points,
+   no valid one, points behind the camera, a 180-degree start); the
+   segment sum bit-equal with equal strides (utils/synth.py SEGSUM_CASES:
+   the local, steady local, wide and global BA windows in each form
+   ObsMap hands over, D = 1, 12 and 18; the pose graph's D = 49 and 7);
+3. kernel_times: ms per call at each row's timed cases: the kernel's
+   device time behind a spin kernel, the unqueued launch interval, the
+   host's issue time, the plain version, and the row's bound (FAST's
+   bytes and operations counted on the timed inputs; the segment sum's
+   bytes at 3.35 TB/s; none for the pose Gauss-Newton, which is
+   latency-bound). FAST per 640x480 frame's 8 levels, a bench-scene
+   frame, 8 and 2 lanes, scale_path's pyramid (1.3) and dataset_euroc's
+   (752x480); the pose Gauss-Newton at 1,000 points 2 x 5, 1,250 points
+   4 x 5 and 16,384 points 4 x 10; every segment sum case;
 4. frontend_check: make_frame on the card against make_frame on the CPU
    (the plain path) on one 640x480 frame;
 5. main_path: System.track_monocular at the flagship configuration
@@ -54,11 +40,8 @@ Phases, each printing one JSON line:
    BA window 8) with the JAX package's default options, loop closing on,
    over 90 frames of the synthetic bench scene (too few keyframes for a
    loop probe), with the kernels' launch counts read around the run (one
-   FAST launch per make_frame, collapse retries included; one pose GN
-   launch per pose_only_gn call, counted through the tracking and
-   relocalize modules' names; one segment-sum launch per CUDA
-   fixed_order_sum call, counted through the segsum and pose_graph
-   modules' names, in this phase and the loop session's). Poses are counted
+   FAST launch per make_frame, collapse retries included; each kernel one
+   launch per call of its dispatcher on the card). Poses are counted
    as bench.py counts them: live OK outputs, every backfill triple and
    the shutdown drain;
 5a. server_path: the drop-in backend, ``server.backend_client``'s
@@ -224,7 +207,7 @@ Phases, each printing one JSON line:
    positions of one frame within 1e-4 m) and textured_path's frame time
    beside the main path's.
 
-The phases run in the order 1, 2, 2a, 3, 3a, 4, 5, 5a, 6, 5b, 7-21.
+The phases run in the order 1-5, 5a, 6, 5b, 7-21.
 Phases 12, 13 and 13a run in a second process (``chip_smoke.py
 --sessions DIR``), phases 15 and 16 in a third (``chip_smoke.py --lanes
 DIR``), phases 17, 17a and 17b in a fourth (``chip_smoke.py --ring
@@ -235,11 +218,15 @@ DIR`` or ``--offline DIR`` alone for their phases by themselves); their
 lines are printed after phase 11's and phase 14's. Then the kernels
 summary line and, last, {"ok": true, "device": ...}.
 Every session the phases drive (5, 5a, 5b, 8, 9, 10, 12, 13, 13a, 15,
-17, 18, 19 and 20; not phase 21's subprocess) counts its pose_only_gn calls
-on the card and the pose GN kernel's launches ("pose_gn" in its line)
-and fails unless they are equal; phase 8 also needs a call over the
-whole landmark table (relocalization's 16,384 points, 4 x 10) among
-them.
+17, 18, 19 and 20; not phase 21's subprocess) counts, for each kernel, its
+dispatcher's calls on the card through every name its callers bind and
+the kernel's launches ("kernels" in its line, kernels_engaged), and fails
+unless each kernel's launches equal its calls, FAST and the pose
+Gauss-Newton were called (the segment sum too in phases 5 and 10), and
+FAST launched once per make_frame; phase 8 also needs a pose GN call
+over the whole landmark table (relocalization's 16,384 points, 4 x 10).
+The kernels summary line gives each kernel's launches for its calls,
+session by session.
 Any failed check exits non-zero; a watchdog ends the run after 360 s.
 It imports nothing of JAX or of the JAX package, nor ``msgpack``,
 ``aiohttp`` or ``cv2``; the port's JPEG codec imports ``PIL`` when it is
@@ -267,6 +254,9 @@ import tempfile
 import time
 
 import numpy as np
+
+# The yardstick's peaks and FAST bound (NVIDIA's H100 SXM data sheet).
+from benchmark.harness.peaks import PEAK_BYTES_S, fast_bound_ms
 
 WATCHDOG_S = 360
 N_FRAMES = 90
@@ -359,20 +349,6 @@ RING_THREADS = 1                # the ring process's (its steps are host-bound)
 REPLAY_TIMED = ("_backfill_step", "_wide_slice", "_young_slice")
 LOOP_PROGRAMS = ("_loop_candidate", "_loop_sim3", "_loop_apply",
                  "_global_slice")
-# H100 SXM (NVIDIA data sheet): HBM bandwidth, and fp32 outside the
-# tensor cores, 67 TFLOP/s = 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz.
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
-# Issue rates of the instructions the FAST kernel runs (CUDA C++
-# Programming Guide, arithmetic instruction throughput, compute
-# capability 9.0): a float add or subtract 128 results per clock per SM,
-# a compare, min, max or select 64; an SM issues at most 128 per clock.
-SUB_OPS_S = PEAK_FP32_S / 2
-CMP_OPS_S = PEAK_FP32_S / 4
-INSTR_OPS_S = PEAK_FP32_S / 2
-# The earlier one-pixel-per-thread formulation's count, 424 operations
-# per pixel at 67 TFLOP/s; printed beside the bound for comparison.
-OLD_OPS_PER_PIXEL = 424
 SPIN_CYCLES = 100_000_000       # ~50 ms at the H100's 1.98 GHz SM clock
 # The pose Gauss-Newton kernel's cases, tests/test_torch_pose_gn_cuda.py's
 # inputs: name -> (N, rounds, iters, utils/synth.py pose_problem options).
@@ -390,6 +366,7 @@ POSE_GN_CASES = {
     "start_180deg": (600, 4, 5, dict(flip=True)),
 }
 POSE_GN_TOL = 1e-5              # R and t, kernel against the plain version
+POSE_GN_TIMED = ("main_1000_2x5", "main_1250_4x5", "reloc_16384_4x10")
 
 
 _CHILDREN = []                  # processes this run started
@@ -499,142 +476,398 @@ def ptxas_summary(report: str):
     return out
 
 
-def equal_or_fail(got, ref, what):
-    """torch.equal(got, ref), or fail naming the case."""
-    if not got.equal(ref):
-        err = (float((got - ref).abs().max()) if got.shape == ref.shape
-               else f"shapes {tuple(got.shape)} and {tuple(ref.shape)}")
-        fail(f"FAST kernel differs from its plain version: {what} "
-             f"(max abs diff {err})")
+def _tensors(x):
+    """The tensors of a kernel's output (a tensor, or nested tuples and
+    lists of them), in order."""
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in _tensors(y)]
+    return [x]
 
 
-def kernel_check(torch, fast_cuda, fast_ops, level_shapes):
-    """Phase 2: the CUDA kernel against the plain version on the card,
-    bit for bit (torch.equal)."""
-    dev = torch.device("cuda")
+def equal_values(got, ref, what):
+    """FAST: every map torch.equal to the plain version's."""
+    got, ref = _tensors(got), _tensors(ref)
+    if len(got) != len(ref):
+        fail(f"{what}: {len(got)} maps, the plain version {len(ref)}")
+    for g, r in zip(got, ref):
+        if not g.equal(r):
+            err = (float((g - r).abs().max()) if g.shape == r.shape
+                   else f"shapes {tuple(g.shape)} and {tuple(r.shape)}")
+            fail(f"{what}: the kernel differs from its plain version "
+                 f"(max abs diff {err})")
+    return {}
+
+
+def equal_bits(got, ref, what):
+    """The segment sum: shape, strides and every bit (as int32) equal."""
+    import torch
+    if got.shape != ref.shape or got.stride() != ref.stride() \
+            or not torch.equal(got.contiguous().view(torch.int32),
+                               ref.contiguous().view(torch.int32)):
+        fail(f"{what}: the kernel differs from its plain version")
+    return dict(shape=list(got.shape))
+
+
+def close_pose_gn(got, ref, what):
+    """The pose Gauss-Newton: R and t within POSE_GN_TOL, the same
+    inliers and count."""
+    import torch
+    dR = float((got.R - ref.R).abs().max())
+    dt = float((got.t - ref.t).abs().max())
+    if not (dR <= POSE_GN_TOL and dt <= POSE_GN_TOL):
+        fail(f"{what}: the kernel differs from its plain version (R {dR}, "
+             f"t {dt})")
+    if not torch.equal(got.inlier, ref.inlier) \
+            or int(got.n_inliers) != int(ref.n_inliers):
+        fail(f"{what}: the kernel's inliers differ from the plain version's")
+    return dict(R_err=dR, t_err=dt, n_inliers=int(got.n_inliers),
+                chi2=float(got.chi2), plain_chi2=float(ref.chi2))
+
+
+def fast_cases(torch):
+    """FAST's cases on the card, as (levels, threshold), {with_nms}:
+    every level shape of a 640x480 frame, a ragged 100x128 and a 7x9
+    image alone (thresholds 7 and 20, raw and with NMS); batches of 3;
+    the 8-level pyramid in one launch; 8 and 2 lanes of it; the pyramids
+    at scales 1.3 and 1.5 (odd level shapes: 369x492, 284x379, ... at
+    1.3) and of a 752x480 frame (EuRoC's width: 480x752, 400x625, ...,
+    125x200); each lanes path's own launch at its batch, levels and data
+    (phases 15 and 17); and a bench-scene frame's pyramid (the main
+    path's own data)."""
+    from send_slam_tpu_torch.ops.fast import fast_score_levels_plain
+    from send_slam_tpu_torch.ops.pyramid import build_pyramid, level_shapes
+    from send_slam_tpu_torch.utils.synth import SyntheticWorld
+
+    def tex(h, w, seed):
+        return torch.from_numpy(texture(h, w, seed)).cuda()
+
+    cases = {}
+
+    def add(name, levels, th, with_nms=True, timed=False):
+        cases[name] = ((levels, th), dict(with_nms=with_nms), timed)
+
     shapes = list(level_shapes(480, 640, 8, 1.2))
-    cases = 0
     for i, (h, w) in enumerate(shapes + [(100, 128), (7, 9)]):
-        img = torch.from_numpy(texture(h, w, seed=i)).to(dev)
+        img = tex(h, w, i)
+        if h >= 100 and not bool(
+                (fast_score_levels_plain([img], 20.0, True)[0][1] > 0).any()):
+            fail(f"texture {h}x{w} has no corners at th 20 to check")
         for th in (7.0, 20.0):
-            raw, nms = fast_cuda.fast_score_cuda(img, th, with_nms=True)
-            raw_only = fast_cuda.fast_score_cuda(img, th)
-            ref = fast_ops.fast_score_map(img, th)
-            ref_nms = fast_ops.nms3x3(ref)
-            equal_or_fail(raw, ref, f"raw {h}x{w} th={th}")
-            equal_or_fail(nms, ref_nms, f"nms {h}x{w} th={th}")
-            equal_or_fail(raw_only, ref, f"raw-only {h}x{w} th={th}")
-            if h >= 100 and int((ref_nms > 0).sum()) == 0:
-                fail(f"texture {h}x{w} th={th} has no corners to check")
-            cases += 1
-    for (h, w) in ((225, 300), (100, 128)):
-        batch = torch.stack([torch.from_numpy(texture(h, w, seed=50 + s))
-                             for s in range(3)]).to(dev)
+            add(f"{h}x{w}_th{th:g}_raw", [img], th, with_nms=False)
+            add(f"{h}x{w}_th{th:g}", [img], th)
+    for h, w in ((225, 300), (100, 128)):
+        batch = torch.stack([tex(h, w, 50 + s) for s in range(3)])
         for th in (7.0, 20.0):
-            raw_b, nms_b = fast_cuda.fast_score_cuda(batch, th, with_nms=True)
-            for r in range(3):
-                raw_1, nms_1 = fast_cuda.fast_score_cuda(
-                    batch[r].contiguous(), th, with_nms=True)
-                equal_or_fail(raw_b[r], raw_1, f"batch row {r} {h}x{w} raw")
-                equal_or_fail(nms_b[r], nms_1, f"batch row {r} {h}x{w} nms")
-                ref = fast_ops.fast_score_map(batch[r], th)
-                equal_or_fail(raw_b[r], ref, f"batch row {r} {h}x{w} vs plain")
-                equal_or_fail(nms_b[r], fast_ops.nms3x3(ref),
-                              f"batch row {r} {h}x{w} nms vs plain")
-            cases += 1
-
-    # One launch over the whole pyramid, raw-only and with NMS.
-    pyr = [torch.from_numpy(texture(h, w, seed=i)).to(dev)
-           for i, (h, w) in enumerate(shapes)]
-    max_err = 0.0
+            add(f"batch_3x{h}x{w}_th{th:g}", [batch], th)
+    pyr = [tex(h, w, i) for i, (h, w) in enumerate(shapes)]
     for th in (7.0, 20.0):
-        refs = [fast_ops.fast_score_map(lv, th) for lv in pyr]
-        for with_nms in (False, True):
-            n0 = fast_cuda.launches
-            got = fast_cuda.fast_score_levels_cuda(pyr, th, with_nms)
-            if fast_cuda.launches != n0 + 1:
-                fail("a pyramid call did not count exactly one launch")
-            for (h, w), out, ref in zip(shapes, got, refs):
-                raw = out[0] if with_nms else out
-                equal_or_fail(raw, ref, f"pyramid raw {h}x{w} th={th}")
-                max_err = max(max_err, float((raw - ref).abs().max()))
-                if with_nms:
-                    equal_or_fail(out[1], fast_ops.nms3x3(ref),
-                                  f"pyramid nms {h}x{w} th={th}")
-            cases += 1
-    # 8 lanes x 8 levels in one launch: each row equals its own launch.
-    lanes = [torch.stack([torch.from_numpy(texture(h, w, seed=100 * s + i))
-                          for s in range(8)]).to(dev)
+        add(f"frame_640x480_th{th:g}_raw", pyr, th, with_nms=False)
+        add(f"frame_640x480_th{th:g}", pyr, th, timed=th == 7.0)
+    lanes = [torch.stack([tex(h, w, 100 * s + i) for s in range(8)])
              for i, (h, w) in enumerate(shapes)]
-    got = fast_cuda.fast_score_levels_cuda(lanes, 7.0, with_nms=True)
-    for r in range(8):
-        one = fast_cuda.fast_score_levels_cuda(
-            [lv[r].contiguous() for lv in lanes], 7.0, with_nms=True)
-        for (h, w), lv, (raw_b, nms_b), (raw_1, nms_1) in zip(
-                shapes, lanes, got, one):
-            equal_or_fail(raw_b[r], raw_1, f"lane {r} raw {h}x{w}")
-            equal_or_fail(nms_b[r], nms_1, f"lane {r} nms {h}x{w}")
-            ref = fast_ops.fast_score_map(lv[r], 7.0)
-            equal_or_fail(raw_1, ref, f"lane {r} raw {h}x{w} vs plain")
-            equal_or_fail(nms_1, fast_ops.nms3x3(ref),
-                          f"lane {r} nms {h}x{w} vs plain")
-    cases += 1
-    # Other scales' pyramids (odd level shapes: 369x492, 284x379, ... at
-    # 1.3), resampled from a textured frame as build_pyramid resamples
-    # them: one launch over every level, raw and with NMS.
-    from send_slam_tpu_torch.ops.pyramid import build_pyramid
-    odd = {}
+    add("lanes_8x8_th7", lanes, 7.0, timed=True)
+    add("lanes_2x8_th7", [lv[:2].contiguous() for lv in lanes], 7.0,
+        timed=True)
     for scale in ODD_SCALES:
-        pyr = build_pyramid(torch.from_numpy(texture(480, 640, seed=70))
-                            .to(dev), 8, scale)
-        odd[str(scale)] = [list(lv.shape) for lv in pyr]
+        odd = build_pyramid(tex(480, 640, 70), 8, scale)
         for th in (7.0, 20.0):
-            got = fast_cuda.fast_score_levels_cuda(pyr, th, with_nms=True)
-            for lv, (raw, nms) in zip(pyr, got):
-                ref = fast_ops.fast_score_map(lv, th)
-                what = f"scale {scale} level {tuple(lv.shape)} th={th}"
-                equal_or_fail(raw, ref, f"raw, {what}")
-                equal_or_fail(nms, fast_ops.nms3x3(ref), f"nms, {what}")
-                max_err = max(max_err, float((raw - ref).abs().max()))
-            cases += 1
-    # dataset_euroc's pyramid: 752x480 at 1.2 (480x752, 400x625, ...,
-    # 125x200), one launch over every level, raw and with NMS.
-    euroc = build_pyramid(torch.from_numpy(texture(EUROC_H, EUROC_W,
-                                                   seed=80)).to(dev), 8, 1.2)
+            add(f"scale_{scale}_th{th:g}", odd, th,
+                timed=scale == SCALE_PATH_SCALE and th == 7.0)
+    euroc = build_pyramid(tex(EUROC_H, EUROC_W, 80), 8, 1.2)
     for th in (7.0, 20.0):
-        got = fast_cuda.fast_score_levels_cuda(euroc, th, with_nms=True)
-        for lv, (raw, nms) in zip(euroc, got):
-            ref = fast_ops.fast_score_map(lv, th)
-            what = f"752x480 level {tuple(lv.shape)} th={th}"
-            equal_or_fail(raw, ref, f"raw, {what}")
-            equal_or_fail(nms, fast_ops.nms3x3(ref), f"nms, {what}")
-            max_err = max(max_err, float((raw - ref).abs().max()))
-        cases += 1
-    # Each lanes path's launch at its own batch, levels and data.
-    lanes_err = 0.0
+        add(f"euroc_752x480_th{th:g}", euroc, th, timed=th == 7.0)
     for name, (levels, th) in lanes_launch_inputs(torch).items():
-        got = fast_cuda.fast_score_levels_cuda(levels, th, with_nms=True)
-        lanes_err = max(lanes_err, hold_launch(fast_ops, levels, th, got,
-                                               f"{name}'s launch"))
-        cases += 1
+        add(f"{name}_launch", levels, th)
+    world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
+                           fy=520.0, seed=11)
+    _, Rs, tls = world.trajectory(n_frames=N_FRAMES)
+    k = N_FRAMES // 2
+    bench = np.round(world.render(Rs[k], tls[k])).astype(np.float32)
+    add("bench_scene_th7", build_pyramid(torch.from_numpy(bench).cuda(), 8,
+                                         1.2), 7.0, timed=True)
+    return cases
+
+
+def pose_gn_cases(torch):
+    """The pose Gauss-Newton's cases on the card (POSE_GN_CASES); the
+    main path's two calls and relocalization's timed."""
+    from send_slam_tpu_torch.utils.synth import pose_problem
+    cases = {}
+    for name, (n, rounds, iters, opts) in POSE_GN_CASES.items():
+        pr = pose_problem(n, seed=1600 + n, **opts)
+        args = [torch.from_numpy(pr[k]).cuda()
+                for k in ("R0", "t0", "X", "uv_obs", "w_valid")]
+        s2 = pr["sigma2"]
+        kw = dict(sigma2=None if s2 is None else torch.from_numpy(s2).cuda(),
+                  rounds=rounds, iters=iters, huber_delta=2.447)
+        cases[name] = (args + [pr["fx"], pr["fy"], pr["cx"], pr["cy"]], kw,
+                       name in POSE_GN_TIMED)
+    return cases
+
+
+def segsum_cases(torch):
+    """The segment sum's cases on the card, all timed: utils/synth.py
+    SEGSUM_CASES' BA windows in each form that local_ba.py's ObsMap hands
+    over (seg_sum's rows, D = 1; seg_sum_t's transpose, D = 12;
+    seg_sum_batched_t's blocks, B = W, D = 18), and the pose graph's two
+    sums (D = 49 and D = 7)."""
+    from send_slam_tpu_torch.ops import segsum
+    from send_slam_tpu_torch.utils.synth import (
+        SEGSUM_CASES, segsum_problem, segsum_values,
+    )
+
+    def vals(rows, cols, seed):
+        return torch.from_numpy(segsum_values(rows, cols, seed)).cuda()
+
+    cases = {}
+    for name in SEGSUM_CASES:
+        p = segsum_problem(name, 2020)
+        if "ids" not in p:
+            for which, D in (("h", 49), ("b", 7)):
+                segs = segsum.SegmentMap(
+                    torch.from_numpy(p[f"{which}_seg"]).cuda(),
+                    p[f"n_{which}"])
+                cases[f"{name}_{which}_d{D}"] = (
+                    (vals(len(segs.seg), D, 5), segs), {}, True)
+            continue
+        W, N, L = p["W"], p["N"], p["L"]
+        om = segsum.ObsMap(torch.from_numpy(p["ids"]).cuda(), L)
+        cases.update({
+            f"{name}_seg_sum_d1": ((torch.ones((W * N, 1)).cuda(),
+                                    om._seg(1)), {}, True),
+            f"{name}_seg_sum_t_d12": ((vals(12, W * N, 1).T, om._seg(1)),
+                                      {}, True),
+            f"{name}_batched_d18": ((vals(W * 18, N, 2).reshape(W, 18, N)
+                                     .permute(0, 2, 1), om._seg(W)),
+                                    {}, True)})
+    return cases
+
+
+def fast_case_bound(levels, th, with_nms):
+    return fast_bound(*fast_work(levels, th))
+
+
+def segsum_case_bound(values, segs):
+    """The bytes a segment sum must move: the valid rows' values read
+    once and the output written once, at PEAK_BYTES_S."""
+    n_bytes = 4 * values.shape[-1] * (int(segs.counts[:segs.n_seg].sum())
+                                      + segs.n_seg)
+    return dict(bound_ms=n_bytes / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                bound_bytes=n_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One hand-written kernel. Names are "module:attribute" under
+    send_slam_tpu_torch. ``library``: the wrapper module, whose LIBRARY
+    builds and launches it; ``dispatchers``: the dispatcher under every
+    name its callers bind (the first is the one the checks call);
+    ``plain``: its plain version, which takes the dispatcher's arguments;
+    ``cases(torch)``: {name: (args, kwargs, timed)}, each called as
+    dispatcher(*args, **kwargs) and plain(*args, **kwargs);
+    ``compare(got, ref, what)``: fails unless the kernel holds against
+    the plain version, else returns what the case's line shows;
+    ``bound(*args, **kwargs)``: the least time a timed case could take,
+    if one is worked out; ``calls``: calls a timing; ``on_card(*args,
+    **kwargs)``: whether a dispatcher call goes to the kernel; ``key``:
+    the name a session counts such a call under, if any."""
+
+    library: str
+    dispatchers: tuple
+    plain: str
+    cases: object
+    compare: object
+    comparison: str
+    bound: object
+    calls: int
+    on_card: object
+    key: object = None
+
+
+KERNELS = {
+    "fast": Kernel(
+        library="ops.fast_cuda",
+        dispatchers=("ops.fast:fast_score_levels",
+                     "ops.orb:fast_score_levels"),
+        plain="ops.fast:fast_score_levels_plain",
+        cases=fast_cases, compare=equal_values,
+        comparison="torch.equal; repeat torch.equal",
+        bound=fast_case_bound, calls=50,
+        on_card=lambda levels, *a, **k: bool(levels)
+        and all(lv.is_cuda for lv in levels),
+        key=lambda levels, *a, **k: "%dx%d" % (     # lanes x levels
+            levels[0].shape[0] if levels[0].dim() == 3 else 1, len(levels))),
+    "pose_gn": Kernel(
+        library="ops.pose_gn_cuda",
+        dispatchers=("models.tracking:pose_only_gn",
+                     "models.relocalize:pose_only_gn"),
+        plain="models.tracking:pose_only_gn_plain",
+        cases=pose_gn_cases, compare=close_pose_gn,
+        comparison=f"R, t within {POSE_GN_TOL}; inliers equal; repeat "
+                   "torch.equal",
+        bound=None, calls=20,
+        on_card=lambda R0, t0, X, *a, **k: X.is_cuda,
+        key=lambda R0, t0, X, *a, **k: "%dx%dx%d" % (  # points x rounds x iters
+            X.shape[0], k.get("rounds", 4), k.get("iters", 10))),
+    "segsum": Kernel(
+        library="ops.segsum_cuda",
+        dispatchers=("ops.segsum:fixed_order_sum",
+                     "models.pose_graph:fixed_order_sum"),
+        plain="ops.segsum:fixed_order_sum_plain",
+        cases=segsum_cases, compare=equal_bits,
+        comparison="torch.equal of the int32 bits; strides equal; repeat "
+                   "torch.equal",
+        bound=segsum_case_bound, calls=20,
+        on_card=lambda values, *a, **k: values.is_cuda),
+}
+
+
+def _resolve(name):
+    """The object a "module:attribute" name of KERNELS names now."""
+    import importlib
+    mod, attr = name.split(":")
+    return getattr(importlib.import_module("send_slam_tpu_torch." + mod),
+                   attr)
+
+
+def library(row):
+    return _resolve(row.library + ":LIBRARY")
+
+
+def load_kernels():
+    """Build and load every kernel's library: {kernel: its library's file,
+    seconds to load (the build included), nvcc's seconds, the -Xptxas -v
+    summary}."""
+    out = {}
+    for name, row in KERNELS.items():
+        lib = library(row)
+        t0 = time.perf_counter()
+        lib.load()
+        out[name] = dict(library=lib.path().name,
+                         build_s=time.perf_counter() - t0,
+                         nvcc_s=lib.build_seconds,
+                         ptxas=ptxas_summary(lib.report()))
+    return out
+
+
+def kernel_check(torch, cases):
+    """Phase 2: each kernel against its plain version on the card at
+    every one of its ``cases`` (kernel: {name: (args, kwargs, timed)}):
+    one launch a call, the row's comparison, a repeat bit-equal."""
+    out = {}
+    for name, row in KERNELS.items():
+        lib = library(row)
+        dispatch, plain = _resolve(row.dispatchers[0]), _resolve(row.plain)
+        shown = {}
+        for case, (args, kw, _) in cases[name].items():
+            what = f"{name} {case}"
+            n0 = lib.launches
+            got = dispatch(*args, **kw)
+            again = dispatch(*args, **kw)
+            if lib.launches != n0 + 2:
+                fail(f"{what}: {lib.launches - n0} launches for 2 calls")
+            shown[case] = row.compare(got, plain(*args, **kw), what)
+            if not all(a.equal(b) for a, b in zip(_tensors(got),
+                                                   _tensors(again))):
+                fail(f"{what}: a repeat is not bit-equal")
+        out[name] = dict(comparison=row.comparison, n_cases=len(shown),
+                         cases=shown)
     torch.cuda.synchronize()
-    return dict(cases=cases, comparison="torch.equal", max_abs_err=max_err,
-                lanes_max_abs_err=lanes_err, odd_scale_level_shapes=odd,
-                euroc_level_shapes=[list(lv.shape) for lv in euroc])
+    return out
 
 
-def hold_launch(fast_ops, levels, th, got, what):
-    """A batched launch's (raw, nms) per level against the plain version
-    on each of its rows, bit for bit; the largest difference."""
-    err = 0.0
-    for lvl, (lv, (raw, nms)) in enumerate(zip(levels, got)):
-        for r in range(lv.shape[0]):
-            ref = fast_ops.fast_score_map(lv[r], th)
-            equal_or_fail(raw[r], ref, f"{what}, lane {r} level {lvl} raw")
-            equal_or_fail(nms[r], fast_ops.nms3x3(ref),
-                          f"{what}, lane {r} level {lvl} nms")
-            err = max(err, float((raw[r] - ref).abs().max()))
-    return err
+def kernel_times(cases):
+    """Phase 3: ms per call at each timed case of each kernel: its device
+    time behind a spin kernel (``ms``), the unqueued launch interval, the
+    host's issue time, the plain version's time, and the row's bound."""
+    out = {}
+    for name, row in KERNELS.items():
+        dispatch, plain = _resolve(row.dispatchers[0]), _resolve(row.plain)
+        out[name] = {
+            case: dict(ms=cuda_ms(lambda: dispatch(*a, **kw), row.calls),
+                       launch_interval_ms=cuda_ms(
+                           lambda: dispatch(*a, **kw), row.calls,
+                           queued=False),
+                       launch_host_ms=host_ms(lambda: dispatch(*a, **kw)),
+                       plain_ms=cuda_ms(lambda: plain(*a, **kw), 3,
+                                        repeats=3),
+                       **(row.bound(*a, **kw) if row.bound else {}))
+            for case, (a, kw, timed) in cases[name].items() if timed}
+    return out
+
+
+def hold_kept(eng, name, what):
+    """Every call of kernel ``name`` that kernels_engaged kept, against
+    the plain version by its row's comparison, then dropped; returns the
+    number held."""
+    row = KERNELS[name]
+    plain = _resolve(row.plain)
+    kept = eng[name]["kept"]
+    for i, (a, kw, out) in enumerate(kept):
+        row.compare(out, plain(*a, **kw), f"{what}'s {name} call {i}")
+    n = len(kept)
+    kept.clear()
+    return n
+
+
+@contextlib.contextmanager
+def kernels_engaged(keep=()):
+    """Counts, while the block runs, each kernel's dispatcher calls on the
+    card through every name its callers bind, and its library's
+    launches: {kernel: {"calls", "launches" (set when the block ends),
+    "shapes": the calls by the row's key}}. The calls of the kernels
+    named in ``keep`` are kept with their outputs under "kept" (held, not
+    copied: nothing writes into a call's inputs or outputs) for
+    hold_kept."""
+    import importlib
+    eng, patched, start = {}, [], {}
+    for name, row in KERNELS.items():
+        rec = eng[name] = dict(calls=0, launches=0, shapes={})
+        if name in keep:
+            rec["kept"] = []
+        start[name] = library(row).launches
+        for where in row.dispatchers:
+            mod, attr = where.split(":")
+            m = importlib.import_module("send_slam_tpu_torch." + mod)
+            patched.append((m, attr, getattr(m, attr)))
+            setattr(m, attr, _counted(row, rec, getattr(m, attr)))
+    try:
+        yield eng
+    finally:
+        for m, attr, real in patched:
+            setattr(m, attr, real)
+        for name, row in KERNELS.items():
+            eng[name]["launches"] = library(row).launches - start[name]
+
+
+def _counted(row, rec, real):
+    def call(*a, **kw):
+        if not row.on_card(*a, **kw):
+            return real(*a, **kw)
+        rec["calls"] += 1
+        if row.key is not None:
+            key = row.key(*a, **kw)
+            rec["shapes"][key] = rec["shapes"].get(key, 0) + 1
+        out = real(*a, **kw)
+        if "kept" in rec:
+            rec["kept"].append((a, kw, out))
+        return out
+    return call
+
+
+def check_engaged(where, eng, reached=("fast", "pose_gn"), frames=None):
+    """Fails unless every kernel's calls on the card in the block that
+    ``eng`` counted each took one launch, each kernel in ``reached`` was
+    called, and, given ``frames`` (the block's make_frame calls), FAST
+    launched once per make_frame."""
+    for name, rec in eng.items():
+        if rec["launches"] != rec["calls"] \
+                or (name in reached and rec["calls"] == 0):
+            fail(f"{where}: {rec['launches']} {name} launches for "
+                 f"{rec['calls']} calls on the card (expected one per call)")
+    if frames is not None and eng["fast"]["launches"] != frames:
+        fail(f"{where}: {eng['fast']['launches']} FAST launches for "
+             f"{frames} make_frame calls (expected one per make_frame)")
 
 
 def lanes_launch_inputs(torch):
@@ -661,11 +894,13 @@ def lanes_launch_inputs(torch):
     return out
 
 
-def fast_work(torch, fast_ops, levels, th):
+def fast_work(levels, th):
     """What FAST with NMS must do on ``levels`` (each (..., H, W)) at
     threshold ``th``, as csrc/fast_kernel.cu formulates it: pixels,
     pixels that pass the compass pre-test (points 0, 4, 8, 12), and
     corners (raw score > 0)."""
+    import torch
+    from send_slam_tpu_torch.ops import fast as fast_ops
     n_px = n_cand = n_corner = 0
     for lv in levels:
         H, W = lv.shape[-2:]
@@ -683,355 +918,15 @@ def fast_work(torch, fast_ops, levels, th):
 
 def fast_bound(n_px, n_cand, n_corner):
     """The least time (ms) the card could take for FAST with NMS on
-    inputs with these counts (fast_work), and what bounds it. Bytes:
-    the image read once, the raw and NMS maps written once. Operations,
-    per pixel: the pre-test's 4 subtractions and 8 compares and the NMS
-    select; per pixel that passes it, 12 more subtractions and 161
-    min/max/compare/select (3 x 32 for the arcs of 2, 4 and 8, 32 for
-    the arcs of 9, 30 to reduce the 16 arcs per side, one max, one
-    compare, one select); per corner, the 8 NMS compares. Loads,
-    addresses and predicate logic are not counted."""
-    subs = 4 * n_px + 12 * n_cand
-    cmps = 9 * n_px + 161 * n_cand + 8 * n_corner
+    inputs with these counts (fast_work; benchmark/harness/peaks.py
+    fast_bound_ms), and what bounds it: the bytes (the image read once,
+    the raw and NMS maps written once) or the operations."""
+    bound = fast_bound_ms(n_px, n_cand, n_corner)
     t_bytes = 3 * 4 * n_px / PEAK_BYTES_S * 1e3
-    t_ops = max(subs / SUB_OPS_S, cmps / CMP_OPS_S,
-                (subs + cmps) / INSTR_OPS_S) * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
-                subtractions=subs, compare_min_max_select=cmps,
-                pixels=n_px, pretest_passes=n_cand, corners=n_corner)
-
-
-def kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr):
-    """Phase 3: times per 640x480 frame (8 levels, raw + NMS at
-    min_th_fast = 7), the batch of 8 pyramids, and the bounds of each
-    timed input; ``bench_pyr`` is the pyramid of a bench-scene frame
-    (the main path's own data)."""
-    dev = torch.device("cuda")
-    shapes = list(level_shapes(480, 640, 8, 1.2))
-    pyr = [torch.from_numpy(texture(h, w, seed=i)).to(dev)
-           for i, (h, w) in enumerate(shapes)]
-
-    def one_launch():
-        fast_cuda.fast_score_levels_cuda(pyr, 7.0, with_nms=True)
-
-    def eight_launches():
-        for lv in pyr:
-            fast_cuda.fast_score_cuda(lv, 7.0, with_nms=True)
-
-    def plain():
-        for lv in pyr:
-            fast_ops.nms3x3(fast_ops.fast_score_map(lv, 7.0))
-
-    ms = cuda_ms(one_launch, 50)
-    launch_ms = cuda_ms(one_launch, 50, queued=False)
-    launch_host_ms = host_ms(one_launch)
-    bench_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
-        bench_pyr, 7.0, with_nms=True), 50)
-    eight_ms = cuda_ms(eight_launches, 20)
-    eight_launch_ms = cuda_ms(eight_launches, 20, queued=False)
-    plain_ms = cuda_ms(plain, 5, repeats=3)
-    bound = fast_bound(*fast_work(torch, fast_ops, pyr, 7.0))
-    n_px = bound["pixels"]
-    old_ops_bound_ms = OLD_OPS_PER_PIXEL * n_px / PEAK_FP32_S * 1e3
-    if ms < old_ops_bound_ms:
-        print(f"FAST: one launch per frame takes {ms:.5f} ms, under the "
-              f"one-pixel-per-thread formulation's {OLD_OPS_PER_PIXEL}-"
-              f"operation bound of {old_ops_bound_ms:.5f} ms: this "
-              "formulation does fewer operations.", flush=True)
-
-    lanes = [torch.stack([torch.from_numpy(texture(h, w, seed=100 * s + i))
-                          for s in range(8)]).to(dev)
-             for i, (h, w) in enumerate(shapes)]
-    batch_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
-        lanes, 7.0, with_nms=True), 20)
-    batch_bound = fast_bound(*fast_work(torch, fast_ops, lanes, 7.0))
-    bench_bound = fast_bound(*fast_work(torch, fast_ops, bench_pyr, 7.0))
-    # Two lanes (phase 15's launch) and the plain version on both batches.
-    pair = [lv[:2].contiguous() for lv in lanes]
-    hold_launch(fast_ops, pair, 7.0, fast_cuda.fast_score_levels_cuda(
-        pair, 7.0, with_nms=True), "the timed 2-lane launch")
-    pair_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
-        pair, 7.0, with_nms=True), 20)
-    pair_bound = fast_bound(*fast_work(torch, fast_ops, pair, 7.0))
-
-    def plain_levels(levels):
-        for lv in levels:
-            fast_ops.nms3x3(fast_ops.fast_score_map(lv, 7.0))
-
-    pair_plain_ms = cuda_ms(lambda: plain_levels(pair), 5, repeats=3)
-    batch_plain_ms = cuda_ms(lambda: plain_levels(lanes), 3, repeats=3)
-    # scale_path's launch: a 640x480 frame's 8 levels at 1.3.
-    from send_slam_tpu_torch.ops.pyramid import build_pyramid
-    odd = build_pyramid(torch.from_numpy(texture(480, 640, seed=70)).to(dev),
-                        8, SCALE_PATH_SCALE)
-    odd_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
-        odd, 7.0, with_nms=True), 50)
-    odd_plain_ms = cuda_ms(lambda: plain_levels(odd), 5, repeats=3)
-    odd_bound = fast_bound(*fast_work(torch, fast_ops, odd, 7.0))
-    # dataset_euroc's launch: a 752x480 frame's 8 levels at 1.2.
-    euroc = build_pyramid(torch.from_numpy(texture(EUROC_H, EUROC_W,
-                                                   seed=80)).to(dev), 8, 1.2)
-    euroc_ms = cuda_ms(lambda: fast_cuda.fast_score_levels_cuda(
-        euroc, 7.0, with_nms=True), 50)
-    euroc_plain_ms = cuda_ms(lambda: plain_levels(euroc), 5, repeats=3)
-    euroc_bound = fast_bound(*fast_work(torch, fast_ops, euroc, 7.0))
-    return dict(
-        unit="per 640x480 frame: 8 pyramid levels, raw + NMS at th 7",
-        tile=[fast_cuda.TILE_W, fast_cuda.TILE_H],
-        ms=ms, launch_interval_ms=launch_ms, launch_host_ms=launch_host_ms,
-        eight_launches_ms=eight_ms,
-        eight_launches_interval_ms=eight_launch_ms,
-        plain_ms=plain_ms, **bound, old_ops_bound_ms=old_ops_bound_ms,
-        bench_scene=dict(ms=bench_ms, **bench_bound),
-        batch=dict(lanes=8, levels=8, ms=batch_ms, plain_ms=batch_plain_ms,
-                   **batch_bound),
-        pair=dict(lanes=2, levels=8, ms=pair_ms, plain_ms=pair_plain_ms,
-                  **pair_bound),
-        scale_1_3=dict(levels=[list(lv.shape) for lv in odd], ms=odd_ms,
-                       plain_ms=odd_plain_ms, **odd_bound),
-        euroc_752x480=dict(levels=[list(lv.shape) for lv in euroc],
-                           ms=euroc_ms, plain_ms=euroc_plain_ms,
-                           **euroc_bound))
-
-
-def pose_gn_inputs(torch, name, dev):
-    """(args, kwargs) of pose_only_gn for a POSE_GN_CASES entry."""
-    from send_slam_tpu_torch.utils.synth import pose_problem
-    n, rounds, iters, opts = POSE_GN_CASES[name]
-    pr = pose_problem(n, seed=1600 + n, **opts)
-    args = [torch.from_numpy(pr[k]).to(dev)
-            for k in ("R0", "t0", "X", "uv_obs", "w_valid")]
-    s2 = pr["sigma2"]
-    kw = dict(sigma2=None if s2 is None else torch.from_numpy(s2).to(dev),
-              rounds=rounds, iters=iters, huber_delta=2.447)
-    return args + [pr["fx"], pr["fy"], pr["cx"], pr["cy"]], kw
-
-
-def pose_gn_check(torch, tracking, pose_gn_cuda):
-    """Phase 2a: the pose Gauss-Newton kernel against the plain version
-    on the card: R and t within POSE_GN_TOL, the same inliers and count,
-    one launch a call, and a second launch bit-equal."""
-    cases, max_R, max_t = {}, 0.0, 0.0
-    for name in POSE_GN_CASES:
-        args, kw = pose_gn_inputs(torch, name, "cuda")
-        n0 = pose_gn_cuda.launches
-        got = tracking.pose_only_gn(*args, **kw)
-        again = tracking.pose_only_gn(*args, **kw)
-        if pose_gn_cuda.launches != n0 + 2:
-            fail(f"pose GN {name}: {pose_gn_cuda.launches - n0} launches "
-                 "for 2 calls")
-        ref = tracking.pose_only_gn_plain(*args, **kw)
-        dR = float((got.R - ref.R).abs().max())
-        dt = float((got.t - ref.t).abs().max())
-        if not (dR <= POSE_GN_TOL and dt <= POSE_GN_TOL):
-            fail(f"pose GN kernel differs from its plain version: {name} "
-                 f"(R {dR}, t {dt})")
-        if not torch.equal(got.inlier, ref.inlier) \
-                or int(got.n_inliers) != int(ref.n_inliers):
-            fail(f"pose GN kernel's inliers differ from the plain "
-                 f"version's: {name}")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"pose GN kernel: a repeat of {name} is not bit-equal")
-        max_R, max_t = max(max_R, dR), max(max_t, dt)
-        cases[name] = dict(R_err=dR, t_err=dt,
-                           n_inliers=int(got.n_inliers),
-                           chi2=float(got.chi2), plain_chi2=float(ref.chi2))
-    torch.cuda.synchronize()
-    return dict(comparison=f"R, t within {POSE_GN_TOL}; inliers equal; "
-                           "repeat torch.equal",
-                max_R_err=max_R, max_t_err=max_t, cases=cases)
-
-
-def pose_gn_times(torch, tracking, pose_gn_cuda):
-    """Phase 3a: ms per pose Gauss-Newton call on the card: the kernel
-    (device time behind a spin kernel, the unqueued launch interval, the
-    host's issue time) and the plain version (its launches issued
-    eagerly: host-bound), at the main path's two calls (1,000 points 2 x
-    5, 1,250 points 4 x 5) and relocalization's (16,384, 4 x 10)."""
-    out = {}
-    for name in ("main_1000_2x5", "main_1250_4x5", "reloc_16384_4x10"):
-        args, kw = pose_gn_inputs(torch, name, "cuda")
-
-        def kernel():
-            pose_gn_cuda.pose_gn_cuda(*args, **kw)
-
-        def plain():
-            tracking.pose_only_gn_plain(*args, **kw)
-
-        out[name] = dict(ms=cuda_ms(kernel, 20),
-                         launch_interval_ms=cuda_ms(kernel, 20, queued=False),
-                         launch_host_ms=host_ms(kernel),
-                         plain_ms=cuda_ms(plain, 3, repeats=3))
-    return out
-
-
-@contextlib.contextmanager
-def pose_gn_counted():
-    """Counts, while the block runs, the pose_only_gn calls on CUDA
-    tensors through the tracking and relocalize modules' names (every
-    caller's) and the pose GN kernel's launches: ``rec["calls"]``,
-    ``rec["launches"]`` (the latter set when the block ends), and the
-    calls on the card by "points x rounds x iters" (``rec["shapes"]``)."""
-    from send_slam_tpu_torch.models import relocalize, tracking
-    from send_slam_tpu_torch.ops import pose_gn_cuda
-    rec = dict(calls=0, launches=0, shapes={})
-    reals = [(m, m.pose_only_gn) for m in (tracking, relocalize)]
-
-    def counted(real):
-        def call(R0, t0, X, *a, **kw):
-            if X.is_cuda:
-                rec["calls"] += 1
-                key = "%dx%dx%d" % (X.shape[0], kw.get("rounds", 4),
-                                    kw.get("iters", 10))
-                rec["shapes"][key] = rec["shapes"].get(key, 0) + 1
-            return real(R0, t0, X, *a, **kw)
-        return call
-
-    for m, real in reals:
-        m.pose_only_gn = counted(real)
-    n0 = pose_gn_cuda.launches
-    try:
-        yield rec
-    finally:
-        rec["launches"] = pose_gn_cuda.launches - n0
-        for m, real in reals:
-            m.pose_only_gn = real
-
-
-def check_pose_gn(where, rec):
-    """Fails unless the block that ``rec`` counted made pose_only_gn
-    calls on the card and each took one kernel launch."""
-    if rec["launches"] != rec["calls"] or rec["calls"] == 0:
-        fail(f"{where}: {rec['launches']} pose GN launches for "
-             f"{rec['calls']} pose_only_gn calls on the card (expected one "
-             "per call)")
-
-
-def segsum_forms(torch, dev):
-    """(name, kernel call, plain call, bound bytes) of every segment sum
-    of utils/synth.py SEGSUM_CASES on ``dev``: each BA window's three
-    forms, as local_ba.py calls them, and the pose graph's two sums."""
-    from send_slam_tpu_torch.ops import segsum
-    from send_slam_tpu_torch.utils.synth import (
-        SEGSUM_CASES, segsum_problem, segsum_values,
-    )
-    plain = segsum.fixed_order_sum_plain
-    forms = []
-    for name in SEGSUM_CASES:
-        p = segsum_problem(name, 2020)
-        if "ids" not in p:
-            for which, D in (("h", 49), ("b", 7)):
-                seg = torch.from_numpy(p[f"{which}_seg"]).to(dev)
-                n_seg = p[f"n_{which}"]
-                v = torch.from_numpy(segsum_values(len(seg), D, 5)).to(dev)
-                idx = segsum.segment_index(seg, n_seg)
-                forms.append((
-                    f"{name}_{which}_d{D}",
-                    lambda v=v, seg=seg, n=n_seg, idx=idx:
-                        segsum.fixed_order_sum(v, seg, n, index=idx),
-                    lambda v=v, seg=seg, n=n_seg: plain(v, seg, n),
-                    4 * D * (len(seg) + n_seg)))
-            continue
-        W, N, L = p["W"], p["N"], p["L"]
-        om = segsum.ObsMap(torch.from_numpy(p["ids"]).to(dev), L)
-        seg1, c1, _ = om._seg(1)
-        segW, cW, _ = om._seg(W)
-        n_valid = int(c1[:L].sum())
-        ones = torch.ones((W * N, 1), device=dev)
-        v12 = torch.from_numpy(segsum_values(12, W * N, 1)).to(dev)
-        v18 = torch.from_numpy(segsum_values(W * 18, N, 2)).to(dev) \
-            .reshape(W, 18, N)
-        forms += [
-            (f"{name}_seg_sum_d1", lambda om=om, x=ones: om.seg_sum(x),
-             lambda x=ones, s=seg1, c=c1, L=L: plain(x, s, L, c),
-             4 * (n_valid + L)),
-            (f"{name}_seg_sum_t_d12", lambda om=om, x=v12: om.seg_sum_t(x),
-             lambda x=v12, s=seg1, c=c1, L=L: plain(x.T, s, L, c).T,
-             4 * 12 * (n_valid + L)),
-            (f"{name}_batched_d18",
-             lambda om=om, x=v18: om.seg_sum_batched_t(x),
-             lambda x=v18, s=segW, c=cW, n=W * L, W=W, L=L:
-                 plain(x.permute(0, 2, 1), s, n, c)
-                 .reshape(W, L, 18).permute(0, 2, 1),
-             4 * 18 * (n_valid + W * L))]
-    return forms
-
-
-def segsum_check(torch, segsum_cuda):
-    """Phase 2b: the segment-sum kernel against the plain version on the
-    card at every SEGSUM_CASES form: the bits equal (torch.equal of
-    their int32 views), one launch a call, a repeat bit-equal."""
-    cases = {}
-    for name, kernel, plain, _ in segsum_forms(torch, "cuda"):
-        n0 = segsum_cuda.launches
-        got = kernel()
-        again = kernel()
-        if segsum_cuda.launches != n0 + 2:
-            fail(f"segsum {name}: {segsum_cuda.launches - n0} launches for "
-                 "2 calls")
-        ref = plain()
-        if got.shape != ref.shape or got.stride() != ref.stride() \
-                or not torch.equal(got.contiguous().view(torch.int32),
-                                   ref.contiguous().view(torch.int32)):
-            fail(f"segment-sum kernel differs from its plain version: {name}")
-        if not torch.equal(got, again):
-            fail(f"segment-sum kernel: a repeat of {name} is not bit-equal")
-        cases[name] = dict(shape=list(got.shape), equal=True)
-    torch.cuda.synchronize()
-    return dict(comparison="torch.equal of the int32 bits; strides equal; "
-                           "repeat torch.equal", cases=cases)
-
-
-def segsum_times(torch):
-    """Phase 3b: ms per segment sum at segsum_check's forms: the kernel
-    (its output's zero fill included) behind a spin kernel, the plain
-    version the same way, and the bound of the bytes that must move."""
-    out = {}
-    for name, kernel, plain, n_bytes in segsum_forms(torch, "cuda"):
-        out[name] = dict(ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 5),
-                         bound_ms=n_bytes / PEAK_BYTES_S * 1e3,
-                         bound_bytes=n_bytes)
-    return out
-
-
-@contextlib.contextmanager
-def segsum_counted():
-    """Counts, while the block runs, the fixed_order_sum calls on CUDA
-    tensors through the segsum module's name (every ObsMap sum) and the
-    pose graph's, and the segment-sum kernel's launches: ``rec["calls"]``,
-    ``rec["launches"]`` (set when the block ends)."""
-    from send_slam_tpu_torch.models import pose_graph
-    from send_slam_tpu_torch.ops import segsum, segsum_cuda
-    rec = dict(calls=0, launches=0)
-    reals = [(m, m.fixed_order_sum) for m in (segsum, pose_graph)]
-
-    def counted(real):
-        def call(values, *a, **kw):
-            if values.is_cuda:
-                rec["calls"] += 1
-            return real(values, *a, **kw)
-        return call
-
-    for m, real in reals:
-        m.fixed_order_sum = counted(real)
-    n0 = segsum_cuda.launches
-    try:
-        yield rec
-    finally:
-        rec["launches"] = segsum_cuda.launches - n0
-        for m, real in reals:
-            m.fixed_order_sum = real
-
-
-def check_segsum(where, rec):
-    """Fails unless the block that ``rec`` counted made segment sums on
-    the card and each took one kernel launch."""
-    if rec["launches"] != rec["calls"] or rec["calls"] == 0:
-        fail(f"{where}: {rec['launches']} segment-sum launches for "
-             f"{rec['calls']} fixed_order_sum calls on the card (expected "
-             "one per call)")
+    return dict(bound_ms=bound,
+                bound_by="bytes" if t_bytes >= bound else "operations",
+                bytes_bound_ms=t_bytes, pixels=n_px, pretest_passes=n_cand,
+                corners=n_corner)
 
 
 def frontend_check(torch, make_frame, cfg, img):
@@ -1417,7 +1312,7 @@ def kf_ate(system, ts, gt):
     return ate_rmse(kts, kpos, ts, gt) if len(kts) >= 3 else float("inf")
 
 
-def loop_path(torch, System, cfg, fast_cuda):
+def loop_path(torch, System, cfg):
     """Phase 10: the revisit session on the card, with the loop programs
     timed and the inputs of the first verified closure, its apply and
     its first global slice kept for loop_parity."""
@@ -1476,12 +1371,10 @@ def loop_path(torch, System, cfg, fast_cuda):
     def stop(k, s):
         return k + 1 >= LOOP_FRAMES and s.loops_closed > 0
 
-    fast_cuda.launches = 0
     system.frames_extracted = 0
-    with pose_gn_counted() as gn, segsum_counted() as sums:
+    with kernels_engaged() as eng:
         run = drive(torch, system, frames, ts, after_frame=after_frame,
                     stop=stop)
-    launches, n_extracted = fast_cuda.launches, system.frames_extracted
     n_run = len(run["states"])
     applied = [a for a in attempts if a["attempt"][3] is True]
     est_ts, pos = run["est_ts"], run["est_pos"]
@@ -1508,8 +1401,7 @@ def loop_path(torch, System, cfg, fast_cuda):
         keyframes=run["keyframes"], landmarks=run["landmarks"],
         polish_slices=run["polish_slices"],
         ms_per_call=ms, global_slice_memory=keep["peaks"],
-        frames_through_make_frame=n_extracted, fast_launches=launches,
-        pose_gn=gn, segsum=sums,
+        frames_through_make_frame=system.frames_extracted, kernels=eng,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
@@ -1519,11 +1411,7 @@ def loop_path(torch, System, cfg, fast_cuda):
         res["ok_share_after_first_apply"] = (
             sum(st == TRACKING_OK for st in after) / max(len(after), 1))
     emit(res)
-    check_pose_gn("loop path", gn)
-    check_segsum("loop path", sums)
-    if launches != n_extracted or launches == 0:
-        fail(f"loop path: {launches} FAST launches for {n_extracted} "
-             "frames (expected one per make_frame)")
+    check_engaged("loop path", eng, tuple(KERNELS), system.frames_extracted)
     if not applied:
         fail(f"no loop closure applied in {n_run} frames "
              f"(attempts: {attempts})")
@@ -1674,7 +1562,7 @@ def map_io_phase(torch, System, cfg, system, frames, ts):
     n_kf = int(fresh.map.n_kf)
     states = []
     first = len(frames) // 3
-    with pose_gn_counted() as gn:
+    with kernels_engaged() as eng:
         for i in range(MAP_IO_RELOC_FRAMES):
             out = fresh.track_monocular(frames[first + i],
                                         100.0 + float(ts[first + i]))
@@ -1685,9 +1573,9 @@ def map_io_phase(torch, System, cfg, system, frames, ts):
                load_ms=load_ms, fields_differing=differ, keyframes=n_kf,
                landmarks=int(fresh.map.n_landmarks()), states=states,
                init_attempts=fresh.init_attempts,
-               reloc=fresh.last_reloc, pose_gn=gn)
+               reloc=fresh.last_reloc, kernels=eng)
     emit(res)
-    check_pose_gn("map_io", gn)
+    check_engaged("map_io", eng)
     if differ:
         fail(f"map I/O round trip differs in {differ}")
     if TRACKING_OK not in states or fresh.init_attempts:
@@ -1729,7 +1617,7 @@ def _map_bytes(m):
     return sum(getattr(m, f.name).nbytes for f in dataclasses.fields(m))
 
 
-def long_session(torch, System, cfg, fast_cuda):
+def long_session(torch, System, cfg):
     """Phase 12: compaction on the card. The long-session arc of
     tests/test_covisibility.py at 640x480 with the flagship ORB and
     landmark table and that test's 10-keyframe table, BA window 4 and
@@ -1765,11 +1653,9 @@ def long_session(torch, System, cfg, fast_cuda):
                     keep["compact"] = m
             return _fn(m)
         setattr(system, name, call)
-    fast_cuda.launches = 0
     system.frames_extracted = 0
-    with pose_gn_counted() as gn:
+    with kernels_engaged() as eng:
         run = drive(torch, system, frames, ts)
-    launches, n_extracted = fast_cuda.launches, system.frames_extracted
     states = run["states"]
     n_ok = sum(st == TRACKING_OK for st in states)
     tail_ok = sum(st == TRACKING_OK for st in states[-10:])
@@ -1787,16 +1673,12 @@ def long_session(torch, System, cfg, fast_cuda):
         forced_culls=calls["cull"], compact_step_calls=calls["compact"],
         tracked=len(run["est_ts"]), **_session_ates(system, run, poses, ts),
         ms_per_call=ms, landmarks=run["landmarks"],
-        frames_through_make_frame=n_extracted, fast_launches=launches,
-        pose_gn=gn,
+        frames_through_make_frame=system.frames_extracted, kernels=eng,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
-    check_pose_gn("long session", gn)
-    if launches != n_extracted or launches == 0:
-        fail(f"long session: {launches} FAST launches for {n_extracted} "
-             "frames (expected one per make_frame)")
+    check_engaged("long session", eng, frames=system.frames_extracted)
     if not (system._n_kf_host > LONG_MK and res["compactions"] >= 1):
         fail(f"long session: {system._n_kf_host} keyframes inserted into a "
              f"table of {LONG_MK}, {res['compactions']} compactions")
@@ -1837,7 +1719,7 @@ ATLAS_PROGRAMS = ("_atlas_cand", "_atlas_sim3", "_atlas_weld",
 ATLAS_FAILED_FROM = 150         # the failed verification kept: first from here
 
 
-def atlas_path(torch, System, cfg, fast_cuda):
+def atlas_path(torch, System, cfg):
     """Phase 13: freeze and weld on the card, with the atlas programs
     timed. Kept for long_parity: the inputs of the first weld probe, of
     the verified cross-map Sim(3), of the weld and of the first global
@@ -1899,11 +1781,9 @@ def atlas_path(torch, System, cfg, fast_cuda):
     def after_frame(k, s):
         frame_now[0] = k + 1
 
-    fast_cuda.launches = 0
     system.frames_extracted = 0
-    with pose_gn_counted() as gn:
+    with kernels_engaged() as eng:
         run = drive(torch, system, frames, ts, after_frame=after_frame)
-    launches, n_extracted = fast_cuda.launches, system.frames_extracted
     states = run["states"]
     tail_ok = sum(st == TRACKING_OK for st in states[-10:])
     res = dict(
@@ -1927,16 +1807,12 @@ def atlas_path(torch, System, cfg, fast_cuda):
         tracked=len(run["est_ts"]), **_session_ates(system, run, poses, ts),
         keyframes=int(system.map.n_kf), landmarks=run["landmarks"],
         polish_slices=run["polish_slices"], ms_per_call=ms,
-        frames_through_make_frame=n_extracted, fast_launches=launches,
-        pose_gn=gn,
+        frames_through_make_frame=system.frames_extracted, kernels=eng,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
-    check_pose_gn("atlas path", gn)
-    if launches != n_extracted or launches == 0:
-        fail(f"atlas path: {launches} FAST launches for {n_extracted} "
-             "frames (expected one per make_frame)")
+    check_engaged("atlas path", eng, frames=system.frames_extracted)
     if not ev["freeze"]:
         fail("atlas path: no map froze")
     if not (system.welds_done >= 1 and not system.atlas):
@@ -1998,12 +1874,11 @@ def sessions_main(outdir: str) -> int:
     torch.set_num_threads(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from send_slam_tpu_torch.models.system import System
-    from send_slam_tpu_torch.ops import fast_cuda
-    fast_cuda.load()
+    load_kernels()
     cfg = flagship_config()
-    _, kept_long = long_session(torch, System, cfg, fast_cuda)
-    _, kept_atlas = atlas_path(torch, System, cfg, fast_cuda)
-    scale_path(torch, System, fast_cuda)
+    _, kept_long = long_session(torch, System, cfg)
+    _, kept_atlas = atlas_path(torch, System, cfg)
+    scale_path(torch, System)
     kept_atlas.pop("sim3_failed")
     torch.save(_pack(dict(kept_long, **kept_atlas)),
                os.path.join(outdir, "kept.pt"))
@@ -2309,50 +2184,6 @@ def run_lanes(torch, step, state, images, steps, after=None):
     return state, np.asarray(rows), ms
 
 
-@contextlib.contextmanager
-def launch_record(fast_cuda):
-    """Record each FAST launch made inside the block as (levels,
-    threshold, outputs); the tensors are held, not copied (nothing
-    writes into a launch's inputs or outputs). The launch counter is the
-    wrapper's own. Every launch is a batched one (a System's make_frame
-    is a batch of one)."""
-    real = fast_cuda.fast_score_levels_cuda
-    launches = []
-
-    def spy(levels, threshold, with_nms=False):
-        levels = list(levels)
-        out = real(levels, threshold, with_nms)
-        if not with_nms or levels[0].dim() != 3:
-            fail("a recorded launch was not a batched launch with NMS")
-        launches.append((levels, threshold, out))
-        return out
-
-    fast_cuda.fast_score_levels_cuda = spy
-    try:
-        yield launches
-    finally:
-        fast_cuda.fast_score_levels_cuda = real
-
-
-def launch_shapes(launches):
-    """The distinct (lanes, levels) of recorded launches."""
-    return sorted({(levels[0].shape[0], len(levels))
-                   for levels, _, _ in launches})
-
-
-def hold_launches(fast_ops, launches, what):
-    """Every recorded launch against the plain version, bit for bit
-    (hold_launch), then dropped. Returns (launches held, the largest
-    difference)."""
-    err = 0.0
-    for i, (levels, th, out) in enumerate(launches):
-        err = max(err, hold_launch(fast_ops, levels, th, out,
-                                   f"{what}'s launch {i}"))
-    n = len(launches)
-    launches.clear()
-    return n, err
-
-
 def timed_merge(torch, merge, maps, noises):
     """One ring merge on the card: (maps', ok, n_imported, ms, peak
     device bytes above what was allocated before it)."""
@@ -2366,12 +2197,11 @@ def timed_merge(torch, merge, maps, noises):
             torch.cuda.max_memory_allocated() - base)
 
 
-def lanes_path(torch, fast_cuda):
+def lanes_path(torch):
     """Phase 15: two flagship lanes on the bench world with loop closing,
     one ring merge after LANES_MERGE_AFTER steps, LANES_AFTER more steps
-    on the merged maps; the FAST launches counted around the run, and
-    each held against the plain version after it."""
-    from send_slam_tpu_torch.ops import fast as fast_ops
+    on the merged maps; the kernels' launches counted around the run,
+    and each FAST launch held against the plain version after it."""
     from send_slam_tpu_torch.parallel import (
         init_multicam, make_mesh, multicam_slam_step,
     )
@@ -2412,8 +2242,7 @@ def lanes_path(torch, fast_cuda):
             carried.setdefault("tracked", (k, before))
 
     t_phase = time.perf_counter()
-    fast_cuda.launches = 0
-    with launch_record(fast_cuda) as recorded, pose_gn_counted() as gn:
+    with kernels_engaged(keep=("fast",)) as eng:
         state = init_multicam(cfg, 2, device=CARD, seed=0)
         state, rows_a, ms_a = run_lanes(torch, step, state, images,
                                         range(LANES_MERGE_AFTER),
@@ -2425,9 +2254,7 @@ def lanes_path(torch, fast_cuda):
         state, rows_b, ms_b = run_lanes(
             torch, step, state._replace(maps=merged), images,
             range(LANES_MERGE_AFTER, LANES_MERGE_AFTER + LANES_AFTER))
-    launches = fast_cuda.launches
-    shapes = launch_shapes(recorded)
-    held, held_err = hold_launches(fast_ops, recorded, "lanes_path")
+    held = hold_kept(eng, "fast", "lanes_path")
     rows = np.concatenate([rows_a, rows_b])
     n_steps = len(rows)
     ates = lane_ates(rows, ts, centres)
@@ -2461,9 +2288,7 @@ def lanes_path(torch, fast_cuda):
         merge=dict(ok=ok.cpu().tolist(), imported=n_imp.cpu().tolist(),
                    import_median_to_structure_m=[m for _, m in imports],
                    ms=merge_ms, peak_device_bytes=merge_peak),
-        fast_launches=launches, launch_shapes=shapes,
-        launches_held_against_plain=held, held_max_abs_err=held_err,
-        pose_gn=gn,
+        kernels=eng, fast_launches_held_against_plain=held,
         median_ms_per_step=statistics.median(ms),
         median_ms_per_lane_step=statistics.median(ms) / 2,
         mean_ms_per_step=statistics.fmean(ms),
@@ -2471,7 +2296,7 @@ def lanes_path(torch, fast_cuda):
         parity_steps={n: k for n, (k, _) in carried.items()},
         seconds=time.perf_counter() - t_phase)
     emit(res)
-    check_pose_gn("lanes_path", gn)
+    check_engaged("lanes_path", eng)
     for c in range(2):
         if commits[c] is None:
             fail(f"lanes_path: lane {c} never committed an init")
@@ -2492,12 +2317,12 @@ def lanes_path(torch, fast_cuda):
         fail(f"lanes_path: the imports lie {dist} m from the true "
              f"structure through each lane's gauge (median; the bar is "
              f"{LANES_MAX_IMPORT_DIST} m)")
-    if launches != n_steps or held != n_steps \
-            or shapes != [(2, cfg.orb.n_levels)]:
-        fail(f"lanes_path: {launches} FAST launches ({held} held against "
-             f"the plain version) of (lanes, levels) {shapes} for "
-             f"{n_steps} steps (expected one per step over 2 lanes x "
-             f"{cfg.orb.n_levels} levels)")
+    shapes = eng["fast"]["shapes"]
+    if held != n_steps or shapes != {f"2x{cfg.orb.n_levels}": n_steps}:
+        fail(f"lanes_path: FAST launches by (lanes x levels) {shapes}, "
+             f"{held} held against the plain version, for {n_steps} steps "
+             f"(expected one per step over 2 lanes x {cfg.orb.n_levels} "
+             "levels)")
     missing = {"commit", "keyframe", "tracked"} - set(carried)
     if missing:
         fail(f"lanes_path: no {sorted(missing)} step to carry to "
@@ -2646,12 +2471,11 @@ def lanes_parity(torch, kept):
     return res
 
 
-def lanes_ring(torch, fast_cuda):
+def lanes_ring(torch):
     """Phase 17: 8 lanes on tests/test_parallel.py's merge scene, then
     the ring merge; the same-seed rerun must be bit-equal. Every FAST
     launch is held against the plain version after its run."""
     from send_slam_tpu_torch.models.map_state import map_to_numpy
-    from send_slam_tpu_torch.ops import fast as fast_ops
     from send_slam_tpu_torch.parallel import (
         init_multicam, make_mesh, multicam_slam_step,
     )
@@ -2682,19 +2506,15 @@ def lanes_ring(torch, fast_cuda):
             befores.append(before)
 
     for _ in range(2):
-        fast_cuda.launches = 0
-        with launch_record(fast_cuda) as recorded, pose_gn_counted() as gn:
+        with kernels_engaged(keep=("fast",)) as eng:
             state = init_multicam(cfg, RING_LANES, device=CARD, seed=0)
             state, rows, ms = run_lanes(torch, step, state, images,
                                         range(RING_STEPS), after=keep)
-        launches = fast_cuda.launches
-        shapes = launch_shapes(recorded)
-        held, held_err = hold_launches(fast_ops, recorded, "lanes_ring")
+        held = hold_kept(eng, "fast", "lanes_ring")
         merged, ok, n_imp, merge_ms, peak = timed_merge(
             torch, merge, state.maps,
             merge_noise(RING_LANES, cfg.map.max_landmarks, seed=17))
-        runs.append(dict(state=state, rows=rows, ms=ms, launches=launches,
-                         gn=gn, shapes=shapes, held=held, held_err=held_err,
+        runs.append(dict(state=state, rows=rows, ms=ms, eng=eng, held=held,
                          merged=merged, ok=ok.cpu().numpy(),
                          n_imp=n_imp.cpu().numpy(), merge_ms=merge_ms,
                          peak=peak))
@@ -2724,28 +2544,28 @@ def lanes_ring(torch, fast_cuda):
                    import_median_to_structure_m=[m for _, m in imports],
                    ms=[a["merge_ms"], b["merge_ms"]],
                    peak_device_bytes=a["peak"]),
-        fast_launches=[a["launches"], b["launches"]],
-        pose_gn=[a["gn"], b["gn"]], launch_shapes=a["shapes"],
-        launches_held_against_plain=[a["held"], b["held"]],
-        held_max_abs_err=max(a["held_err"], b["held_err"]),
+        kernels=a["eng"], rerun_kernels=b["eng"],
+        fast_launches_held_against_plain=[a["held"], b["held"]],
         replay_bit_equal=replay,
         median_ms_per_step=statistics.median(ms),
         median_ms_per_lane_step=statistics.median(ms) / RING_LANES,
         seconds=time.perf_counter() - t_phase)
     emit(res)
     for r in runs:
-        check_pose_gn("lanes_ring", r["gn"])
+        check_engaged("lanes_ring", r["eng"])
     if (a["rows"][-1, :, 0] != MODE_TRACKING).any():
         fail(f"lanes_ring: lanes not all TRACKING: {res['final_modes']}")
     if int(a["ok"].sum()) < RING_LANES - 1:
         fail(f"lanes_ring: {int(a['ok'].sum())} merges ok (< "
              f"{RING_LANES - 1})")
-    if any(r[n] != RING_STEPS for r in runs for n in ("launches", "held")) \
-            or a["shapes"] != [(RING_LANES, cfg.orb.n_levels)]:
-        fail(f"lanes_ring: FAST launches {res['fast_launches']} of (lanes, "
-             f"levels) {a['shapes']} for {RING_STEPS} steps (expected one "
-             f"per step over {RING_LANES} lanes x {cfg.orb.n_levels} "
-             "levels)")
+    want = {f"{RING_LANES}x{cfg.orb.n_levels}": RING_STEPS}
+    if any(r["held"] != RING_STEPS or r["eng"]["fast"]["shapes"] != want
+           for r in runs):
+        fail(f"lanes_ring: FAST launches by (lanes x levels) "
+             f"{[r['eng']['fast']['shapes'] for r in runs]}, "
+             f"{res['fast_launches_held_against_plain']} held against the "
+             f"plain version, for {RING_STEPS} steps (expected one per step "
+             f"over {RING_LANES} lanes x {cfg.orb.n_levels} levels)")
     if not replay:
         fail("lanes_ring: the same-seed rerun is not bit-equal")
     afters = befores[1:] + [a["state"]]
@@ -2903,7 +2723,7 @@ def lanes_mixed_mesh(torch, cfg, kept):
     return res
 
 
-def scale_path(torch, System, fast_cuda):
+def scale_path(torch, System):
     """The main path's frames at ``OrbConfig(scale_factor=1.3)``, every
     other option flagship: the pyramid resampled at odd level shapes,
     one FAST launch per make_frame over them."""
@@ -2920,10 +2740,8 @@ def scale_path(torch, System, fast_cuda):
               for k in range(N_FRAMES)]
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    fast_cuda.launches = 0
-    with pose_gn_counted() as gn:
+    with kernels_engaged() as eng:
         run = drive(torch, system, frames, ts)
-    launches = fast_cuda.launches
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
     est_ts, pos = run["est_ts"], run["est_pos"]
     tracked = len(est_ts)
@@ -2935,16 +2753,12 @@ def scale_path(torch, System, fast_cuda):
         frames=N_FRAMES, tracked=tracked, tracked_live=run["live"],
         backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
         keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
-        frames_through_make_frame=system.frames_extracted,
-        fast_launches=launches, pose_gn=gn,
+        frames_through_make_frame=system.frames_extracted, kernels=eng,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
-    check_pose_gn("scale_path", gn)
-    if launches != system.frames_extracted or launches == 0:
-        fail(f"scale_path: {launches} FAST launches for "
-             f"{system.frames_extracted} make_frame calls")
+    check_engaged("scale_path", eng, frames=system.frames_extracted)
     if tracked < MIN_TRACKED or not np.isfinite(ate):
         fail(f"scale_path: tracked {tracked} of {N_FRAMES} (< {MIN_TRACKED})"
              f" or ATE {ate}")
@@ -3042,8 +2856,8 @@ def write_euroc(root, frames, ts, Rs, tls):
         f.write("\n".join(gt) + "\n")
 
 
-def dataset_session(torch, System, fast_cuda, fast_ops, name, root, cfg,
-                    frames, true_ts, hold=False):
+def dataset_session(torch, System, name, root, cfg, frames, true_ts,
+                    hold=False):
     """Open the tree at ``root`` as a user would (open_sequence), decode
     every frame (each must equal the frame written, each stamp lie within
     1e-6 s of ``true_ts``), track them all on the card, counted as
@@ -3069,11 +2883,9 @@ def dataset_session(torch, System, fast_cuda, fast_ops, name, root, cfg,
     gt_ts, gt_pos = seq.gt_positions()
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    fast_cuda.launches = 0
-    with launch_record(fast_cuda) as launches, pose_gn_counted() as gn:
+    with kernels_engaged(keep=("fast",) if hold else ()) as eng:
         run = drive(torch, system, [img for _, img in decoded], ts)
-    n_launches = fast_cuda.launches
-    held = hold_launches(fast_ops, launches, name) if hold else (0, 0.0)
+    held = hold_kept(eng, "fast", name) if hold else 0
     est_ts, pos = run["est_ts"], run["est_pos"]
     tracked = len(est_ts)
     ate = (ate_rmse(est_ts, pos, gt_ts, gt_pos) if tracked >= 3
@@ -3085,19 +2897,16 @@ def dataset_session(torch, System, fast_cuda, fast_ops, name, root, cfg,
         tracked=tracked, tracked_live=run["live"],
         backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
         keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
-        frames_through_make_frame=system.frames_extracted,
-        fast_launches=n_launches, launches_held_against_plain=held[0],
-        held_max_abs_err=held[1], pose_gn=gn,
+        frames_through_make_frame=system.frames_extracted, kernels=eng,
+        fast_launches_held_against_plain=held,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds=run["seconds"])
     emit(res)
-    check_pose_gn(name, gn)
-    if n_launches != system.frames_extracted or n_launches == 0:
-        fail(f"{name}: {n_launches} FAST launches for "
-             f"{system.frames_extracted} make_frame calls")
-    if hold and held[0] != n_launches:
-        fail(f"{name}: {held[0]} of {n_launches} launches held")
+    check_engaged(name, eng, frames=system.frames_extracted)
+    if hold and held != eng["fast"]["launches"]:
+        fail(f"{name}: {held} of {eng['fast']['launches']} FAST launches "
+             "held")
     if tracked < MIN_TRACKED or not ate <= DATASET_MAX_ATE:
         fail(f"{name}: tracked {tracked} of {len(frames)} (< {MIN_TRACKED})"
              f" or ATE {ate} m (> {DATASET_MAX_ATE})")
@@ -3167,7 +2976,7 @@ def _is_float(v: str) -> bool:
     return True
 
 
-def textured_path(torch, System, fast_cuda):
+def textured_path(torch, System):
     """tests/test_stress_e2e.py's flagship lap: the textured room with its
     whole nuisance stack, 120 frames of one lap, each rendered just
     before it is tracked (the renders are stateful and taken in order)."""
@@ -3186,10 +2995,8 @@ def textured_path(torch, System, fast_cuda):
         tracking=TrackingConfig(init_min_matches=50, pipeline_stretch=1))
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    fast_cuda.launches = 0
-    with pose_gn_counted() as gn:
+    with kernels_engaged() as eng:
         run = drive(torch, system, Rendered(world, zip(Rs, tls)), ts)
-    launches = fast_cuda.launches
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
     est_ts, pos = run["est_ts"], run["est_pos"]
     tracked = len(est_ts)
@@ -3199,16 +3006,12 @@ def textured_path(torch, System, fast_cuda):
         tracked=tracked, tracked_live=run["live"],
         backfilled=run["backfilled"], init_commit_ts=system.init_commit_ts,
         keyframes=run["keyframes"], landmarks=run["landmarks"], ate_m=ate,
-        frames_through_make_frame=system.frames_extracted,
-        fast_launches=launches, pose_gn=gn,
+        frames_through_make_frame=system.frames_extracted, kernels=eng,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         seconds_with_rendering=run["seconds"])
     emit(res)
-    check_pose_gn("textured_path", gn)
-    if launches != system.frames_extracted or launches == 0:
-        fail(f"textured_path: {launches} FAST launches for "
-             f"{system.frames_extracted} make_frame calls")
+    check_engaged("textured_path", eng, frames=system.frames_extracted)
     if not (tracked > TEXTURED_MIN_OK and ate < TEXTURED_MAX_ATE
             and run["keyframes"] < TEXTURED_FRAMES // 2):
         fail(f"textured_path: tracked {tracked} of {TEXTURED_FRAMES} (bar "
@@ -3273,10 +3076,8 @@ def offline_main(outdir: str) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from send_slam_tpu_torch.config import CameraConfig, EngineConfig
     from send_slam_tpu_torch.models.system import System
-    from send_slam_tpu_torch.ops import fast as fast_ops
-    from send_slam_tpu_torch.ops import fast_cuda
     from send_slam_tpu_torch.utils.synth import SyntheticWorld
-    fast_cuda.load()
+    load_kernels()
     for name, w, h, fx, fy, t0, write in (
             ("dataset_tum", 640, 480, 520.0, 520.0, TUM_T0, write_tum),
             ("dataset_euroc", EUROC_W, EUROC_H, EUROC_FX, EUROC_FY,
@@ -3292,14 +3093,13 @@ def offline_main(outdir: str) -> int:
             example = start_example(root, outdir)
         cfg = EngineConfig(camera=CameraConfig(
             width=w, height=h, fx=fx, fy=fy, cx=world.cx, cy=world.cy))
-        _, run = dataset_session(torch, System, fast_cuda, fast_ops, name,
-                                 root, cfg, frames, t0 + ts,
-                                 hold=name == "dataset_euroc")
+        _, run = dataset_session(torch, System, name, root, cfg, frames,
+                                 t0 + ts, hold=name == "dataset_euroc")
         if name == "dataset_tum":
             np.savez(os.path.join(outdir, "offline.npz"),
                      est_ts=np.asarray(run["est_ts"]) - TUM_T0,
                      est_pos=run["est_pos"])
-    textured_path(torch, System, fast_cuda)
+    textured_path(torch, System)
     dataset_example(example)
     return 0
 
@@ -3506,14 +3306,13 @@ def lanes_main(outdir: str, ring: bool) -> int:
     import torch
     torch.set_num_threads(RING_THREADS if ring else LANES_THREADS)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from send_slam_tpu_torch.ops import fast_cuda
-    fast_cuda.load()
+    load_kernels()
     if ring:
-        _, kept = lanes_ring(torch, fast_cuda)
+        _, kept = lanes_ring(torch)
         lanes_mixed_mesh(torch, kept["cfg"], kept)
         calibration(torch)
     else:
-        _, kept = lanes_path(torch, fast_cuda)
+        _, kept = lanes_path(torch)
         lanes_parity(torch, kept)
     return 0
 
@@ -3626,7 +3425,7 @@ class WsClient:
             self.writer.close()
 
 
-def server_path(torch, System, fast_cuda, frames, ts, run, kernel_build_s):
+def server_path(torch, System, frames, ts, run, kernel_build_s):
     """Phase 5a: the drop-in backend (``BackendClient``) on the card,
     dialling the reference's host played here on a loopback listener:
     the calibration packet of the flagship camera, then phase 5's frames
@@ -3773,21 +3572,19 @@ def server_path(torch, System, fast_cuda, frames, ts, run, kernel_build_s):
 
     printed = io.StringIO()
     bc.System = Served
-    fast_cuda.launches = 0
     try:
-        with contextlib.redirect_stdout(printed), pose_gn_counted() as gn:
+        with contextlib.redirect_stdout(printed), kernels_engaged() as eng:
             client = asyncio.run(asyncio.wait_for(session(), 200))
     finally:
         bc.System = System
-    launches = fast_cuda.launches
     system = client.system
     torch.cuda.synchronize()
-    fast_cuda.launches = 0
     t = time.perf_counter()
-    System(flagship_config(), device="cuda").warmup()
-    torch.cuda.synchronize()
+    with kernels_engaged() as warm:
+        System(flagship_config(), device="cuda").warmup()
+        torch.cuda.synchronize()
     warm_second_s = time.perf_counter() - t
-    warm_launches = fast_cuda.launches      # the warmup's make_frame calls
+    warm_launches = warm["fast"]["launches"]   # the warmup's make_frame calls
 
     want = run["wire"]
     got = [(p["timestamp"], [p["position"][c] for c in "xyz"],
@@ -3852,11 +3649,12 @@ def server_path(torch, System, fast_cuda, frames, ts, run, kernel_build_s):
         frame_packet_bytes=len(wire[0]),
         pose_packet_bytes=len(frame_packet_bytes(packets[0]))
         if packets else None,
-        fast_launches=launches, warmup_launches=warm_launches,
-        pose_gn=gn, frames_through_make_frame=system.frames_extracted,
-        **host)
+        kernels=eng, warmup_kernels=warm,
+        frames_through_make_frame=system.frames_extracted, **host)
     emit(res)
-    check_pose_gn("server_path", gn)
+    check_engaged("server_path", eng,
+                  frames=system.frames_extracted + warm_launches)
+    check_engaged("server_path's second warmup", warm, ("fast",))
     if not same:
         fail(f"server_path: the backend's {len(got)} pose packets differ "
              f"from the main path's {len(want)} ({diff})")
@@ -3870,15 +3668,10 @@ def server_path(torch, System, fast_cuda, frames, ts, run, kernel_build_s):
              "keyframes")
     if report.get("Frames processed") != str(n):
         fail(f"server_path: shutdown report {report}")
-    if launches != system.frames_extracted + warm_launches \
-            or warm_launches < 1:
-        fail(f"server_path: {launches} FAST launches for "
-             f"{system.frames_extracted} frames and a warmup of "
-             f"{warm_launches}")
     return res
 
 
-def app_path(torch, fast_cuda, frames, warm_launches):
+def app_path(torch, frames, warm_launches):
     """Phase 5b: ``Application`` on the card over the first APP_FRAMES
     frames written as P6, ports 0: the engine, the :tcp listener and the
     web panel. This script's own WebSocket client reads ``/client``
@@ -3969,12 +3762,10 @@ def app_path(torch, fast_cuda, frames, warm_launches):
             await app.stop()
         return app, lat, late, ok, metrics, status, index_status, index, pkt
 
-    fast_cuda.launches = 0
     t0 = time.perf_counter()
-    with pose_gn_counted() as gn:
+    with kernels_engaged() as eng:
         app, lat, late, ok, metrics, status, index_status, index, pkt = \
             asyncio.run(asyncio.wait_for(go(), 180))
-    launches = fast_cuda.launches
     system = app.engine.system
     img = decode_ppm(pkt["frame"])
     probe_equal = np.array_equal(img, published.get(pkt["timestamp"]))
@@ -3993,11 +3784,13 @@ def app_path(torch, fast_cuda, frames, warm_launches):
         metrics_n_keyframes=metrics.get("n_keyframes"),
         index_status=index_status, index_bytes=len(index),
         tcp_probe_equal=probe_equal, tcp_probe_source_frame=probe_source,
-        fast_launches=launches, pose_gn=gn,
-        frames_through_make_frame=system.frames_extracted,
+        kernels=eng, frames_through_make_frame=system.frames_extracted,
         seconds=time.perf_counter() - t0)
     emit(res)
-    check_pose_gn("app_path", gn)
+    if system.frames_extracted < 1:
+        fail("app_path: no frame went through make_frame")
+    check_engaged("app_path", eng,
+                  frames=system.frames_extracted + warm_launches)
     if ok != len(lat) + late:
         fail(f"app_path: {len(lat) + late - ok} poses on /client not OK")
     if not (status == 200 and metrics.get("frames", 0) > 0
@@ -4007,11 +3800,6 @@ def app_path(torch, fast_cuda, frames, warm_launches):
         fail(f"app_path: GET / answered {index_status}")
     if not (probe_equal and probe_source):
         fail("app_path: the :tcp frame packet is not the producer's frame")
-    if launches != system.frames_extracted + warm_launches \
-            or system.frames_extracted < 1:
-        fail(f"app_path: {launches} FAST launches for "
-             f"{system.frames_extracted} frames and a warmup of "
-             f"{warm_launches}")
     return res
 
 
@@ -4031,10 +3819,6 @@ def main() -> int:
     from send_slam_tpu_torch.models.system import (
         TRACKING_OK, System, loop_state_to_numpy,
     )
-    from send_slam_tpu_torch.models import tracking
-    from send_slam_tpu_torch.ops import fast as fast_ops
-    from send_slam_tpu_torch.ops import fast_cuda, pose_gn_cuda, segsum_cuda
-    from send_slam_tpu_torch.ops.pyramid import build_pyramid, level_shapes
     from send_slam_tpu_torch.utils.synth import SyntheticWorld
 
     # --- 1. environment + build -------------------------------------------
@@ -4044,52 +3828,25 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0] if smi else "nvidia-smi: no output"
     print(smi, flush=True)
-    t0 = time.perf_counter()
-    fast_cuda.load()
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pose_gn_cuda.load()
-    gn_build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    segsum_cuda.load()
-    segsum_build_s = time.perf_counter() - t0
+    libraries = load_kernels()
+    build_s = sum(lib["build_s"] for lib in libraries.values())
     emit(dict(phase="environment", device=name, nvidia_smi=smi,
               torch=torch.__version__, cuda=torch.version.cuda,
-              kernel_library=str(fast_cuda.LIBRARY.path().name),
-              kernel_build_s=build_s, nvcc_s=fast_cuda.LIBRARY.build_seconds,
-              ptxas=ptxas_summary(fast_cuda.LIBRARY.ptxas_report()),
-              pose_gn_library=str(pose_gn_cuda.LIBRARY.path().name),
-              pose_gn_build_s=gn_build_s,
-              pose_gn_nvcc_s=pose_gn_cuda.LIBRARY.build_seconds,
-              pose_gn_ptxas=ptxas_summary(
-                  pose_gn_cuda.LIBRARY.ptxas_report()),
-              segsum_library=str(segsum_cuda.LIBRARY.path().name),
-              segsum_build_s=segsum_build_s,
-              segsum_nvcc_s=segsum_cuda.LIBRARY.build_seconds,
-              segsum_ptxas=ptxas_summary(
-                  segsum_cuda.LIBRARY.ptxas_report())))
+              libraries=libraries))
 
     # --- 2 + 3. kernels vs plain on the card, and their times --------------
-    kc = kernel_check(torch, fast_cuda, fast_ops, level_shapes)
+    cases = {k: row.cases(torch) for k, row in KERNELS.items()}
+    kc = kernel_check(torch, cases)
     emit(dict(phase="kernel_check", **kc))
-    gc = pose_gn_check(torch, tracking, pose_gn_cuda)
-    emit(dict(phase="pose_gn_check", **gc))
-    emit(dict(phase="segsum_check", **segsum_check(torch, segsum_cuda)))
+    kt = kernel_times(cases)
+    del cases
+    emit(dict(phase="kernel_times", device=name, nvidia_smi=smi, **kt))
     cfg = flagship_config()
     world = SyntheticWorld(n_points=900, width=640, height=480, fx=520.0,
                            fy=520.0, seed=11)
     ts, Rs, tls = world.trajectory(n_frames=N_FRAMES)
     frames = [np.round(world.render(Rs[k], tls[k])).astype(np.uint8)
               for k in range(N_FRAMES)]
-    bench_pyr = build_pyramid(
-        torch.from_numpy(frames[N_FRAMES // 2].astype(np.float32)).cuda(),
-        cfg.orb.n_levels, cfg.orb.scale_factor)
-    kt = kernel_times(torch, fast_cuda, fast_ops, level_shapes, bench_pyr)
-    emit(dict(phase="kernel_times", device=name, nvidia_smi=smi, **kt))
-    gt_ms = pose_gn_times(torch, tracking, pose_gn_cuda)
-    emit(dict(phase="pose_gn_times", device=name, nvidia_smi=smi, **gt_ms))
-    st_ms = segsum_times(torch)
-    emit(dict(phase="segsum_times", device=name, nvidia_smi=smi, **st_ms))
 
     # --- 4 + 5. front end and main path at the flagship config -------------
     emit(dict(phase="frontend_check",
@@ -4109,13 +3866,9 @@ def main() -> int:
 
     system = System(cfg, device="cuda")
     system.frames_extracted = 0
-    with keep_ba_inputs(torch, system) as kept_ba, \
-            pose_gn_counted() as main_gn, segsum_counted() as main_sums:
-        fast_cuda.launches = 0
+    with keep_ba_inputs(torch, system) as kept_ba, kernels_engaged() as eng:
         run = drive(torch, system, frames, ts, after_frame=snapshot)
-        launches = fast_cuda.launches
     run["trajectory"] = system.trajectory()
-    n_extracted = system.frames_extracted
 
     gt = np.asarray([-R.T @ t for R, t in zip(Rs, tls)])
     est_ts, pos = run["est_ts"], run["est_pos"]
@@ -4133,8 +3886,8 @@ def main() -> int:
         polish_slices=dict(system.polish_slices_run),
         keyframes=int(system._n_kf_host),
         landmarks=int(system.map.n_landmarks()),
-        ate_m=ate, frames_through_make_frame=n_extracted,
-        fast_launches=launches, pose_gn=main_gn, segsum=main_sums,
+        ate_m=ate, frames_through_make_frame=system.frames_extracted,
+        kernels=eng,
         median_ms_per_tracked_frame=(statistics.median(run["t_ok"][1:])
                                      if len(run["t_ok"]) > 1 else None),
         mean_ms_per_tracked_frame=(statistics.fmean(run["t_ok"][1:])
@@ -4147,15 +3900,12 @@ def main() -> int:
         fail(f"tracked {tracked} of {N_FRAMES} frames (< {MIN_TRACKED})")
     if not (np.isfinite(pos).all() and np.isfinite(ate)):
         fail("non-finite trajectory or ATE")
-    if launches != n_extracted or launches == 0:
-        fail(f"{launches} FAST launches for {n_extracted} frames "
-             "(expected one per make_frame)")
-    check_pose_gn("main_path", main_gn)
-    check_segsum("main_path", main_sums)
+    check_engaged("main_path", eng, tuple(KERNELS), system.frames_extracted)
 
     # --- 5a (and 6) + 5b. the server entry points at the flagship config --
-    served = server_path(torch, System, fast_cuda, frames, ts, run, build_s)
-    app_run = app_path(torch, fast_cuda, frames, served["warmup_launches"])
+    served = server_path(torch, System, frames, ts, run, build_s)
+    app_run = app_path(torch, frames,
+                       served["warmup_kernels"]["fast"]["launches"])
 
     # --- 12 + 13 start: the long and atlas sessions in a second process,
     # beside phases 7-11 (their frames are host-bound, as the main
@@ -4180,21 +3930,24 @@ def main() -> int:
 
     # --- 8. relocalization on the main run's System -----------------------
     reloc_ms = time_calls(torch, system, ("_reloc_step",))
-    with pose_gn_counted() as reloc_gn:
+    with kernels_engaged() as reloc_eng:
         rp = reloc_phase(system, frames, ts, gt, est_ts, pos)
-    emit(dict(phase="relocalization", reloc_step_ms=reloc_ms["_reloc_step"],
-              pose_gn=reloc_gn, **rp))
-    check_pose_gn("relocalization", reloc_gn)
-    if not reloc_gn["shapes"].get(f"{cfg.map.max_landmarks}x4x10"):
+    reloc = dict(phase="relocalization",
+                 reloc_step_ms=reloc_ms["_reloc_step"], kernels=reloc_eng,
+                 **rp)
+    emit(reloc)
+    check_engaged("relocalization", reloc_eng)
+    if not reloc_eng["pose_gn"]["shapes"].get(
+            f"{cfg.map.max_landmarks}x4x10"):
         fail(f"relocalization: no pose GN call over the landmark table "
              f"({cfg.map.max_landmarks} x 4 x 10) went through the kernel: "
-             f"{reloc_gn['shapes']}")
+             f"{reloc_eng['pose_gn']['shapes']}")
 
     # --- 9. map I/O of the main run's final map ---------------------------
-    map_io_phase(torch, System, cfg, system, frames, ts)
+    mio = map_io_phase(torch, System, cfg, system, frames, ts)
 
     # --- 10 + 11. the loop session, its programs card vs CPU --------------
-    lp, kept = loop_path(torch, System, cfg, fast_cuda)
+    lp, kept = loop_path(torch, System, cfg)
     loop_parity(torch, System, cfg, kept)
 
     # --- 12-14. compaction, the atlas, their programs card vs CPU ---------
@@ -4210,74 +3963,17 @@ def main() -> int:
                          "the offline-evaluation phases")
     offline_vs_main(run, result, offline, os.path.join(tmp, "offline.npz"))
 
-    emit({"kernels": [{
-        "name": "fast_score", "route": "cuda",
-        "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
-        "replaces": "send_slam_tpu/ops/pallas/fast_kernel.py:226",
-        "launches": launches,
-        "server_path_launches": served["fast_launches"],
-        "app_path_launches": app_run["fast_launches"],
-        "loop_path_launches": lp["fast_launches"],
-        "long_session_launches": ls["fast_launches"],
-        "atlas_path_launches": ap["fast_launches"],
-        "scale_path_launches": sp["fast_launches"],
-        "scale_path_make_frame_calls": sp["frames_through_make_frame"],
-        "dataset_tum_launches": offline["dataset_tum"]["fast_launches"],
-        "dataset_euroc_launches": offline["dataset_euroc"]["fast_launches"],
-        "dataset_euroc_launches_held_against_plain":
-            offline["dataset_euroc"]["launches_held_against_plain"],
-        "textured_path_launches": offline["textured_path"]["fast_launches"],
-        "max_abs_err": max(kc["max_abs_err"],
-                           offline["dataset_euroc"]["held_max_abs_err"]),
-        "max_abs_diff": max(kc["max_abs_err"],
-                            offline["dataset_euroc"]["held_max_abs_err"]),
-        "ms": kt["ms"], "launch_interval_ms": kt["launch_interval_ms"],
-        "plain_ms": kt["plain_ms"],
-        "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
-        "library_ms": None, "unit": kt["unit"],
-        "scale_1_3": {k: kt["scale_1_3"][k] for k in (
-            "levels", "ms", "plain_ms", "bound_ms", "bound_by")},
-        "euroc_752x480": {k: kt["euroc_752x480"][k] for k in (
-            "levels", "ms", "plain_ms", "bound_ms", "bound_by")}}, {
-        "name": "fast_score_batched", "route": "cuda",
-        "source": "send_slam_tpu_torch/csrc/fast_kernel.cu",
-        "replaces": "send_slam_tpu/ops/pallas/fast_kernel.py:198",
-        "launches": lanes["lanes_path"]["fast_launches"],
-        "lanes_ring_launches": lanes["lanes_ring"]["fast_launches"],
-        "launches_held_against_plain": [
-            lanes["lanes_path"]["launches_held_against_plain"],
-            lanes["lanes_ring"]["launches_held_against_plain"]],
-        "max_abs_err": max(kc["lanes_max_abs_err"],
-                           lanes["lanes_path"]["held_max_abs_err"],
-                           lanes["lanes_ring"]["held_max_abs_err"]),
-        "ms": kt["pair"]["ms"], "plain_ms": kt["pair"]["plain_ms"],
-        "bound_ms": kt["pair"]["bound_ms"],
-        "bound_by": kt["pair"]["bound_by"], "library_ms": None,
-        "unit": "per step of 2 lanes: 2 x 8 pyramid levels of 640x480, "
-                "raw + NMS at th 7 (lanes_path's launch)",
-        "eight_lanes": {k: kt["batch"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by")}}, {
-        "name": "pose_gn", "route": "cuda",
-        "source": "send_slam_tpu_torch/csrc/pose_gn_kernel.cu",
-        "replaces": None, "launches": main_gn["launches"],
-        "pose_only_gn_calls": main_gn["calls"],
-        "max_R_err": gc["max_R_err"], "max_t_err": gc["max_t_err"],
-        "ms": gt_ms["main_1250_4x5"]["ms"],
-        "launch_interval_ms": gt_ms["main_1250_4x5"]["launch_interval_ms"],
-        "plain_ms": gt_ms["main_1250_4x5"]["plain_ms"],
-        "bound_by": "latency: rounds x iters dependent steps",
-        "library_ms": None,
-        "unit": "per call: 1,250 points, 4 rounds x 5 iterations",
-        "reloc_16384_4x10": gt_ms["reloc_16384_4x10"]}, {
-        "name": "segsum", "route": "cuda",
-        "source": "send_slam_tpu_torch/csrc/segsum_kernel.cu",
-        "replaces": None, "launches": main_sums["launches"],
-        "fixed_order_sum_calls": main_sums["calls"],
-        "loop_path_launches": lp["segsum"]["launches"],
-        "loop_path_fixed_order_sum_calls": lp["segsum"]["calls"],
-        "max_abs_diff": 0.0, "bound_by": "bytes", "library_ms": None,
-        "unit": "per call, at each SEGSUM_CASES form",
-        "times": st_ms}]})
+    # Each kernel's launches for its calls on the card, session by session.
+    sessions = [result, served, app_run, reloc, mio, lp, ls, ap, sp,
+                *lanes.values(), *offline.values()]
+    emit({"kernels": [dict(
+        name=k, source=str(library(row).source.relative_to(
+            os.path.dirname(os.path.abspath(__file__)))),
+        comparison=row.comparison, cases=kc[k]["n_cases"],
+        launches={ln["phase"]: "%d for %d" % (ln["kernels"][k]["launches"],
+                                              ln["kernels"][k]["calls"])
+                  for ln in sessions if "kernels" in ln},
+        times=kt[k]) for k, row in KERNELS.items()]})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

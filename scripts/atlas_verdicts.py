@@ -41,13 +41,12 @@ def dump(path: str) -> int:
     import chip_smoke
     from send_slam_tpu_torch.models.map_state import map_to_numpy
     from send_slam_tpu_torch.models.system import System
-    from send_slam_tpu_torch.ops import fast_cuda
     if not torch.cuda.is_available():
         print("atlas_verdicts: --dump needs a CUDA card", file=sys.stderr)
         return 2
-    fast_cuda.load()
-    _, kept = chip_smoke.atlas_path(
-        torch, System, chip_smoke.flagship_config(), fast_cuda)
+    chip_smoke.load_kernels()
+    _, kept = chip_smoke.atlas_path(torch, System,
+                                    chip_smoke.flagship_config())
     rec = kept["sim3_failed"]
     if rec is None:
         print("atlas_verdicts: no verification failed at or past frame "

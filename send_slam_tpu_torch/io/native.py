@@ -1,10 +1,12 @@
 """ctypes bindings for the native host-I/O library (native/hostio.cc).
 
 The port's own copy of ``send_slam_tpu/io/native.py``. The library is
-built on first use from the repo's ``native/hostio.cc`` with ``g++`` and
-the flags of ``native/Makefile``, into ``send_slam_tpu_torch/_build/``
-(the JAX package builds into ``native/``); without a compiler the
-pure-numpy implementations of ``io/ppm.py`` are used. This is host code:
+built on first use from the repo's ``native/hostio.cc`` with ``$CXX``
+(``g++`` by default) and the flags of ``native/Makefile``, into
+``send_slam_tpu_torch/_build/`` (the JAX package builds into
+``native/``), by the port's one builder (``ops/cuda_build.py``
+``NativeLibrary``); when the build or the load fails, the pure-numpy
+implementations of ``io/ppm.py`` are used. This is host code:
 ``decode_ppm_gray`` / ``extract_packets_native`` are the per-frame calls
 of the wire path.
 """
@@ -12,12 +14,10 @@ of the wire path.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
 import os
 import struct
 import subprocess
-import tempfile
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -25,44 +25,46 @@ import numpy as np
 
 from send_slam_tpu_torch.io.ppm import decode_ppm, rgb_to_gray_u8
 from send_slam_tpu_torch.io.ppm import encode_ppm as np_encode_ppm
+from send_slam_tpu_torch.ops.cuda_build import NativeLibrary
 
 log = logging.getLogger(__name__)
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "hostio.cc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # native/Makefile: CXXFLAGS, then -shared -fPIC.
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-Wall", "-Wextra",
              "-shared", "-fPIC")
 
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.ppm_probe.restype = ctypes.c_int
+    lib.ppm_probe.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.ppm_decode_gray.restype = ctypes.c_int
+    lib.ppm_decode_gray.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_int]
+    lib.rgb_to_gray.restype = None
+    lib.rgb_to_gray.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
+    lib.ppm_encode.restype = ctypes.c_long
+    lib.ppm_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_long]
+    lib.extract_packets.restype = ctypes.c_int
+    lib.extract_packets.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_size_t),
+        ctypes.c_int, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
+
+
+LIBRARY = NativeLibrary(SOURCE, CXX_FLAGS, _bind,
+                        compiler=lambda: os.environ.get("CXX", "g++"),
+                        timeout=120)
+
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libhostio_{digest}.so"
-
-
-def _build() -> Path:
-    """Compile the library if it is missing; return its path. Writes to
-    a temporary file renamed into place, so concurrent builders agree."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp,
-                        str(SOURCE)], check=True, capture_output=True,
-                       timeout=120)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -71,33 +73,10 @@ def _load() -> Optional[ctypes.CDLL]:
         return _lib
     _tried = True
     try:
-        path = _build()
-        lib = ctypes.CDLL(str(path))
-        lib.ppm_probe.restype = ctypes.c_int
-        lib.ppm_probe.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
-        lib.ppm_decode_gray.restype = ctypes.c_int
-        lib.ppm_decode_gray.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.c_void_p, ctypes.c_int]
-        lib.rgb_to_gray.restype = None
-        lib.rgb_to_gray.argtypes = [
-            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
-        lib.ppm_encode.restype = ctypes.c_long
-        lib.ppm_encode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_long]
-        lib.extract_packets.restype = ctypes.c_int
-        lib.extract_packets.argtypes = [
-            ctypes.c_char_p, ctypes.c_size_t,
-            ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_size_t),
-            ctypes.c_int, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)]
-        _lib = lib
-        log.info("native hostio loaded: %s", path)
-    except (OSError, subprocess.SubprocessError) as e:
+        _lib = LIBRARY.load()
+        log.info("native hostio loaded: %s", LIBRARY.path())
+    except (OSError, subprocess.SubprocessError, RuntimeError) as e:
         log.warning("native hostio unavailable (%s); using numpy fallback", e)
-        _lib = None
     return _lib
 
 

@@ -15,7 +15,7 @@ angle 0-dim tensors, which ``torch.func`` promotes to float64 against a
 Python float (``x + 1e-24``), so the batch stays on the data. The
 (MK, MK, 7, 7) Hessian blocks and the (MK, 7) gradient are summed per
 block in a fixed order (``ops/segsum.fixed_order_sum``; on the card one
-kernel launch a sum over segment indices built once a solve), so a run
+kernel launch a sum over segment maps built once a solve), so a run
 on the card replays bit for bit; the reduced (7 MK)^2 system is one
 dense solve.
 
@@ -34,9 +34,7 @@ from torch.func import jvp, vmap
 from send_slam_tpu_torch.geometry.sim3 import (
     sim3_compose, sim3_exp, sim3_inverse, sim3_log,
 )
-from send_slam_tpu_torch.ops.segsum import (
-    fixed_order_sum, segment_counts, segment_index,
-)
+from send_slam_tpu_torch.ops.segsum import SegmentMap, fixed_order_sum
 
 
 class PoseGraphEdges(NamedTuple):
@@ -119,15 +117,9 @@ def optimize_pose_graph(kf_R, kf_t, kf_valid, edges: PoseGraphEdges,
     w_e = edges.valid.to(dt) * edges.weight
     mask = free.to(dt).repeat_interleave(7)
     # Block ids of the four Hessian scatters and the two gradient ones.
-    h_seg = torch.cat([ii * MK + ii, jj * MK + jj, ii * MK + jj,
-                       jj * MK + ii])
-    b_seg = torch.cat([ii, jj])
-    h_counts = segment_counts(h_seg, MK * MK)
-    b_counts = segment_counts(b_seg, MK)
-    h_index = segment_index(h_seg, MK * MK, h_counts) if dev.type == "cuda" \
-        else None
-    b_index = segment_index(b_seg, MK, b_counts) if dev.type == "cuda" \
-        else None
+    h_map = SegmentMap(torch.cat([ii * MK + ii, jj * MK + jj, ii * MK + jj,
+                                  jj * MK + ii]), MK * MK)
+    b_map = SegmentMap(torch.cat([ii, jj]), MK)
     eye = torch.eye(MK * 7, dtype=dt, device=dev)
 
     xis = torch.zeros((MK, 7), dtype=dt, device=dev)
@@ -142,8 +134,8 @@ def optimize_pose_graph(kf_R, kf_t, kf_valid, edges: PoseGraphEdges,
         bj = torch.einsum('era,e,er->ea', Jj, w_e, r_e)
         H = fixed_order_sum(
             torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]).reshape(-1, 49),
-            h_seg, MK * MK, h_counts, h_index).reshape(MK, MK, 7, 7)
-        b = fixed_order_sum(torch.cat([bi, bj]), b_seg, MK, b_counts, b_index)
+            h_map).reshape(MK, MK, 7, 7)
+        b = fixed_order_sum(torch.cat([bi, bj]), b_map)
 
         A = H.permute(0, 2, 1, 3).reshape(MK * 7, MK * 7)
         A = A * (mask[:, None] * mask[None, :])

@@ -69,11 +69,9 @@ def pose_only_gn(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy, sigma2=None,
     tensors take one launch of the CUDA kernel (``ops/pose_gn_cuda.py``,
     csrc/pose_gn_kernel.cu); CPU tensors :func:`pose_only_gn_plain`."""
     if X.is_cuda:
-        out = pose_gn_cuda(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy,
-                           sigma2=sigma2, rounds=rounds, iters=iters,
-                           huber_delta=huber_delta)
-        count("kernel.pose_gn")
-        return PoseOptResult(*out)
+        return PoseOptResult(*pose_gn_cuda(
+            R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy, sigma2=sigma2,
+            rounds=rounds, iters=iters, huber_delta=huber_delta))
     return pose_only_gn_plain(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy,
                               sigma2=sigma2, rounds=rounds, iters=iters,
                               huber_delta=huber_delta)

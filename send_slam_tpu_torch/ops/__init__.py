@@ -1,7 +1,8 @@
 """Device compute ops: pyramid, FAST, ORB, Hamming matching; the JAX
 package's ``send_slam_tpu.ops`` exports under the same names. The CUDA
-kernels are ``ops/fast_cuda.py`` (FAST) and ``ops/pose_gn_cuda.py`` (the
-pose Gauss-Newton), each built when first called (``ops/cuda_build.py``)."""
+kernels are ``ops/fast_cuda.py`` (FAST), ``ops/pose_gn_cuda.py`` (the
+pose Gauss-Newton) and ``ops/segsum_cuda.py`` (the segment sum), each
+built when first called and launched through ``ops/cuda_build.py``."""
 
 from send_slam_tpu_torch.ops.pyramid import build_pyramid, gaussian_blur  # noqa: F401
 from send_slam_tpu_torch.ops.fast import fast_score_map  # noqa: F401

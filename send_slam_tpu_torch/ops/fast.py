@@ -7,8 +7,8 @@ CUDA kernel (``csrc/fast_kernel.cu``) is held against on the card.
 
 ``fast_score_levels`` is what the front end calls, once per frame on
 every pyramid level: a CUDA list goes to the kernel in one launch (or the
-call raises), a CPU list to the plain version level by level.
-``fast_score`` is the same for one image.
+call raises), a CPU list to the plain version level by level
+(``fast_score_levels_plain``). ``fast_score`` is the same for one image.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from send_slam_tpu_torch.ops.fast_cuda import fast_score_levels_cuda
 
 # Bresenham circle radius 3, OpenCV pixel order (clockwise from top).
 CIRCLE_OFFSETS: Tuple[Tuple[int, int], ...] = (
@@ -108,12 +110,18 @@ def fast_score_levels(levels: Sequence[torch.Tensor], threshold: float,
     version level by level."""
     levels = list(levels)
     if levels and all(lv.is_cuda for lv in levels):
-        from send_slam_tpu_torch.ops.fast_cuda import fast_score_levels_cuda
         return fast_score_levels_cuda(levels, threshold, with_nms)
     if not all(lv.device.type == "cpu" for lv in levels):
         raise ValueError("fast_score_levels: levels must all lie on the "
                          "CPU or all on CUDA, got "
                          f"{sorted({str(lv.device) for lv in levels})}")
+    return fast_score_levels_plain(levels, threshold, with_nms)
+
+
+def fast_score_levels_plain(levels: Sequence[torch.Tensor], threshold: float,
+                            with_nms: bool = False) -> List:
+    """The plain PyTorch version of :func:`fast_score_levels`, level by
+    level on any device (the kernel's reference on the card)."""
     out = []
     for lv in levels:
         raw = fast_score_map(lv, threshold)

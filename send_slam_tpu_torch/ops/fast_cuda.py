@@ -1,17 +1,14 @@
-"""Build and bind the hand-written CUDA FAST-16 kernel (csrc/fast_kernel.cu).
+"""The hand-written CUDA FAST-16 kernel (csrc/fast_kernel.cu): its build
+and its wrapper.
 
-The source is built at first use with plain ``nvcc`` into a shared
-library with a C interface and loaded with ``ctypes``
-(``ops/cuda_build.py``); nothing is built or loaded at import time.
-``LIBRARY.ptxas_report()`` is nvcc's register and shared-memory report.
+Built, loaded and launched through ``ops/cuda_build.py``; nothing is
+built or loaded at import time. ``LIBRARY.report()`` is nvcc's register
+and shared-memory report, ``LIBRARY.launches`` the launch count.
 
 One launch scores every level of a pyramid, and every row of a batch:
 :func:`fast_score_levels_cuda`. The tile table that maps the launch's
 1-D grid onto the levels is computed here (:func:`tile_table`) and
 checked again by the C entry point.
-
-``launches`` counts kernel launches; callers that want to show a run
-went through the kernel reset it to 0 and read it back.
 """
 
 from __future__ import annotations
@@ -23,17 +20,15 @@ from typing import Sequence, Tuple
 
 import torch
 
-from send_slam_tpu_torch.ops.cuda_build import BASE_FLAGS, CSRC, CudaLibrary
+from send_slam_tpu_torch.ops.cuda_build import (
+    CSRC, CudaLibrary, cuda_device, tensor_ptr,
+)
 
 SOURCE = CSRC / "fast_kernel.cu"
 MAX_LEVELS = 16       # entries of the kernel's level table
 # The kernel's tile, chosen on the card (PERF.md section 6); the build
 # passes it to csrc/fast_kernel.cu, and tile_table uses it.
 TILE_W, TILE_H = 64, 32
-NVCC_FLAGS = [*BASE_FLAGS, f"-DFAST_TILE_W={TILE_W}",
-              f"-DFAST_TILE_H={TILE_H}"]
-
-launches = 0          # kernel launches through fast_score_levels_cuda
 
 
 def _bind(lib) -> None:
@@ -43,8 +38,8 @@ def _bind(lib) -> None:
     lib.fast_score_levels.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _bind)
-load = LIBRARY.load
+LIBRARY = CudaLibrary("fast", SOURCE, [f"-DFAST_TILE_W={TILE_W}",
+                                       f"-DFAST_TILE_H={TILE_H}"], _bind)
 
 
 def tile_table(shapes: Tuple[Tuple[int, int], ...]
@@ -82,52 +77,39 @@ def fast_score_levels_cuda(levels: Sequence[torch.Tensor], threshold: float,
     per level, or one (raw, nms) pair per level with ``with_nms``; each
     is a view, in its level's shape, into one buffer for all levels.
     Launches on the current stream, never syncs."""
-    global launches
     levels = list(levels)
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"{len(levels)} levels: the kernel takes 1 to "
                          f"{MAX_LEVELS}")
     first = levels[0]
-    for lv in levels:
-        if not (isinstance(lv, torch.Tensor) and lv.is_cuda):
-            raise ValueError("fast_score_levels_cuda needs CUDA tensors")
-        if lv.device != first.device:
-            raise ValueError("all levels must lie on one device")
-        if lv.dtype != torch.float32:
-            raise TypeError(f"fast_score_levels_cuda needs float32, "
-                            f"got {lv.dtype}")
+    dev = cuda_device("fast_score_levels_cuda", first)
+    ptrs = []
+    for i, lv in enumerate(levels):
+        ptrs.append(tensor_ptr("fast_score_levels_cuda", lv, f"levels[{i}]",
+                               None, torch.float32, dev))
         if lv.dim() != first.dim() or lv.dim() not in (2, 3):
             raise ValueError("levels must all be (H, W) or all (B, H, W)")
         if lv.dim() == 3 and lv.shape[0] != first.shape[0]:
             raise ValueError("levels must share one batch size")
-        if not lv.is_contiguous():
-            raise ValueError("fast_score_levels_cuda needs contiguous levels")
         if lv.numel() == 0:
             raise ValueError(f"empty level {tuple(lv.shape)}")
     if not threshold >= 0.0:
         raise ValueError(f"threshold must be >= 0, got {threshold}")
     B = first.shape[0] if first.dim() == 3 else 1
-    shapes = tuple((lv.shape[-2], lv.shape[-1]) for lv in levels)
-    dims, n_tiles = _dims(shapes)
-    lib = load()
+    dims, n_tiles = _dims(tuple((lv.shape[-2], lv.shape[-1])
+                                for lv in levels))
     offsets = [0]
     for lv in levels:
         offsets.append(offsets[-1] + lv.numel())
-    raw = torch.empty(offsets[-1], dtype=torch.float32, device=first.device)
+    raw = torch.empty(offsets[-1], dtype=torch.float32, device=dev)
     nms = torch.empty_like(raw) if with_nms else None
-    ptrs = [lv.data_ptr() for lv in levels]
     for buf in (raw, nms):
         base = buf.data_ptr() if buf is not None else None
         ptrs += [base + 4 * o if base is not None else None
                  for o in offsets[:-1]]
-    stream = torch.cuda.current_stream(first.device).cuda_stream
-    with torch.cuda.device(first.device):
-        err = lib.fast_score_levels(len(levels), B,
-                                    (ctypes.c_void_p * len(ptrs))(*ptrs),
-                                    dims, n_tiles, float(threshold), stream)
-    if err != 0:
-        raise RuntimeError(f"fast_score_levels launch failed: CUDA error {err}")
-    launches += 1
+    LIBRARY.launch("fast_score_levels", dev, len(levels), B,
+                   (ctypes.c_void_p * len(ptrs))(*ptrs), dims, n_tiles,
+                   float(threshold))
     # One as_strided view per level (half the host time of split + view).
     raws = [raw.as_strided(lv.shape, lv.stride(), o)
             for lv, o in zip(levels, offsets)]
@@ -135,11 +117,3 @@ def fast_score_levels_cuda(levels: Sequence[torch.Tensor], threshold: float,
         return raws
     return list(zip(raws, [nms.as_strided(lv.shape, lv.stride(), o)
                            for lv, o in zip(levels, offsets)]))
-
-
-def fast_score_cuda(img: torch.Tensor, threshold: float,
-                    with_nms: bool = False):
-    """FAST score of one (H, W) or (B, H, W) float32 CUDA image: a
-    one-level table on the same kernel. Returns the raw map, or (raw,
-    nms) with ``with_nms``, in the input's shape."""
-    return fast_score_levels_cuda([img], threshold, with_nms)[0]

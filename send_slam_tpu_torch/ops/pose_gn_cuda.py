@@ -3,12 +3,9 @@
 Gauss-Newton (``models/tracking.py`` ``pose_only_gn``), every round and
 iteration on the card.
 
-The source is built at first use with plain ``nvcc`` into a shared
-library with a C interface and loaded with ``ctypes``
-(``ops/cuda_build.py``); nothing is built or loaded at import time.
-
-``launches`` counts kernel launches; callers that want to show a run
-went through the kernel reset it to 0 and read it back.
+Built, loaded and launched through ``ops/cuda_build.py``; nothing is
+built or loaded at import time. ``LIBRARY.launches`` is the launch
+count.
 """
 
 from __future__ import annotations
@@ -19,13 +16,10 @@ import numbers
 import torch
 
 from send_slam_tpu_torch.ops.cuda_build import (
-    BASE_FLAGS, CSRC, CudaLibrary, tensor_ptr,
+    CSRC, CudaLibrary, cuda_device, tensor_ptr,
 )
 
 SOURCE = CSRC / "pose_gn_kernel.cu"
-NVCC_FLAGS = list(BASE_FLAGS)
-
-launches = 0          # kernel launches through pose_gn_cuda
 
 
 def _bind(lib) -> None:
@@ -35,8 +29,7 @@ def _bind(lib) -> None:
     lib.pose_gn.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _bind)
-load = LIBRARY.load
+LIBRARY = CudaLibrary("pose_gn", SOURCE, [], _bind)
 
 
 def _check(x, name, shape, dtype, dev):
@@ -64,10 +57,7 @@ def pose_gn_cuda(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy, sigma2=None,
     chi2 () float32, n_inliers () int32); R, t, chi2 and n_inliers are
     views into one buffer. Launches on the current stream, never
     syncs."""
-    global launches
-    if not (isinstance(X, torch.Tensor) and X.is_cuda):
-        raise ValueError("pose_gn_cuda needs CUDA tensors")
-    dev = X.device
+    dev = cuda_device("pose_gn_cuda", X)
     n = X.shape[0]
     ptrs = [_check(R0, "R0", (3, 3), torch.float32, dev),
             _check(t0, "t0", (3,), torch.float32, dev),
@@ -80,18 +70,11 @@ def pose_gn_cuda(R0, t0, X, uv_obs, w_valid, fx, fy, cx, cy, sigma2=None,
     if rounds < 0 or iters < 0:
         raise ValueError(f"rounds and iters must be >= 0, got {rounds}, "
                          f"{iters}")
-    lib = load()
     out = torch.empty(16, dtype=torch.float32, device=dev)
     inlier = torch.empty(n, dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.pose_gn(
-            n, int(rounds), int(iters), *ptrs,
-            None if cam_dev is None else cam_dev.data_ptr(), *cam,
-            float(huber_delta), out.data_ptr(),
-            inlier.data_ptr() if n else None, stream)
-    if err != 0:
-        raise RuntimeError(f"pose_gn launch failed: CUDA error {err}")
-    launches += 1
+    LIBRARY.launch("pose_gn", dev, n, int(rounds), int(iters), *ptrs,
+                   None if cam_dev is None else cam_dev.data_ptr(), *cam,
+                   float(huber_delta), out.data_ptr(),
+                   inlier.data_ptr() if n else None)
     return (out[:9].view(3, 3), out[9:12], inlier, out[12],
             out[13:14].view(torch.int32)[0])

@@ -19,18 +19,17 @@ from it in the last bits.
 That is the plain version, which CPU tensors take. CUDA tensors take one
 launch of the hand-written kernel (``ops/segsum_cuda.py``,
 csrc/segsum_kernel.cu), which gives the same bits from a segment index
-built once per segment map (``segment_index``) and never reads a spill
-row.
+and never reads a spill row. A segment map (:class:`SegmentMap`) is built
+once per set of ids; its first sum on the card adds the index to it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from send_slam_tpu_torch.ops import segsum_cuda
-from send_slam_tpu_torch.utils.profiling import count
 
 
 def segment_counts(seg: torch.Tensor, n_seg: int) -> torch.Tensor:
@@ -54,13 +53,10 @@ class SegmentIndex(NamedTuple):
     n_long: torch.Tensor
 
 
-def segment_index(seg: torch.Tensor, n_seg: int,
-                  counts: torch.Tensor = None) -> SegmentIndex:
-    """The ``SegmentIndex`` of (R,) int64 ids in [0, n_seg], on their
-    device, without a host read. ``counts``: ``segment_counts(seg,
-    n_seg)``, when the caller keeps it."""
-    if counts is None:
-        counts = segment_counts(seg, n_seg)
+def _segment_index(seg: torch.Tensor, n_seg: int,
+                   counts: torch.Tensor) -> SegmentIndex:
+    """The ``SegmentIndex`` of (R,) int64 ids in [0, n_seg] with their
+    ``segment_counts``, on their device, without a host read."""
     R = seg.shape[0]
     offsets = torch.zeros(n_seg + 1, dtype=torch.int64, device=seg.device)
     torch.cumsum(counts[:n_seg], 0, out=offsets[1:])
@@ -79,38 +75,44 @@ def segment_index(seg: torch.Tensor, n_seg: int,
                         offsets, long_seg, is_long.sum())
 
 
-def fixed_order_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int,
-                    counts: torch.Tensor = None,
-                    index: Optional[SegmentIndex] = None) -> torch.Tensor:
-    """(R, D) values, (R,) segment ids in [0, n_seg] -> (n_seg, D) sums,
-    each in ascending-value order within its segment (spill dropped).
-    Values may also be (B, Rb, D), read as R = B * Rb rows block after
-    block. ``counts``: ``segment_counts(seg, n_seg)``, and ``index``:
-    ``segment_index(seg, n_seg, counts)``, when the caller keeps them.
-    CUDA tensors take one launch of the kernel, CPU tensors
+class SegmentMap:
+    """R rows' segment ids ``seg`` (R,) int64 in [0, n_seg] (n_seg: the
+    spill slot, dropped) and their ``counts`` (``segment_counts``), built
+    once for every sum over the same ids. ``index``: the kernel's
+    ``SegmentIndex``, None until the map's first sum on the card builds
+    it."""
+
+    def __init__(self, seg: torch.Tensor, n_seg: int):
+        self.seg = seg
+        self.n_seg = n_seg
+        self.counts = segment_counts(seg, n_seg)
+        self.index: Optional[SegmentIndex] = None
+
+
+def fixed_order_sum(values: torch.Tensor, segs: SegmentMap) -> torch.Tensor:
+    """(R, D) values over a segment map -> (n_seg, D) sums, each in
+    ascending-value order within its segment (spill dropped). Values may
+    also be (B, Rb, D), read as R = B * Rb rows block after block. CUDA
+    tensors take one launch of the kernel, CPU tensors
     :func:`fixed_order_sum_plain`."""
     if values.is_cuda:
-        if index is None:
-            index = segment_index(seg, n_seg, counts)
-        out = segsum_cuda.segment_sum(values, seg, index, n_seg)
-        count("kernel.segsum")
-        return out
-    return fixed_order_sum_plain(values, seg, n_seg, counts)
+        if segs.index is None:
+            segs.index = _segment_index(segs.seg, segs.n_seg, segs.counts)
+        return segsum_cuda.segment_sum(values, segs.seg, segs.index,
+                                       segs.n_seg)
+    return fixed_order_sum_plain(values, segs)
 
 
-def fixed_order_sum_plain(values: torch.Tensor, seg: torch.Tensor,
-                          n_seg: int, counts: torch.Tensor = None
+def fixed_order_sum_plain(values: torch.Tensor, segs: SegmentMap
                           ) -> torch.Tensor:
     """The plain PyTorch version of :func:`fixed_order_sum`, op by op on
     any device (the kernel's reference on the card)."""
-    if counts is None:
-        counts = segment_counts(seg, n_seg)
     values = values.reshape(-1, values.shape[-1])
     v, by_value = torch.sort(values, dim=0, stable=True)
-    _, by_seg = torch.sort(seg[by_value], dim=0, stable=True)
+    _, by_seg = torch.sort(segs.seg[by_value], dim=0, stable=True)
     v = torch.gather(v, 0, by_seg)
-    return torch.segment_reduce(v, "sum", lengths=counts, axis=0,
-                                unsafe=True)[:n_seg]
+    return torch.segment_reduce(v, "sum", lengths=segs.counts, axis=0,
+                                unsafe=True)[:segs.n_seg]
 
 
 class ObsMap:
@@ -122,29 +124,24 @@ class ObsMap:
         self._ok = (self.ids >= 0) & (self.ids < L)
         self._safe = torch.where(self._ok, self.ids,
                                  torch.full_like(self.ids, L))
-        self._segs: Dict[int, Tuple[torch.Tensor, torch.Tensor,
-                                    Optional[SegmentIndex]]] = {}
+        self._segs: Dict[int, SegmentMap] = {}
 
-    def _seg(self, B: int):
-        """Segment ids, counts and (on CUDA) the segment index with the
-        rows viewed as B blocks: block b's slot l is segment b * L + l.
-        Built once: the ids do not change across a BA's iterations."""
+    def _seg(self, B: int) -> SegmentMap:
+        """The segment map of the rows viewed as B blocks: block b's slot
+        l is segment b * L + l. Built once: the ids do not change across
+        a BA's iterations."""
         if B not in self._segs:
             R = self._safe.shape[0]
             blk = torch.arange(R, device=self._safe.device) // (R // B)
-            seg = torch.where(self._safe == self.L,
-                              torch.full_like(self._safe, B * self.L),
-                              blk * self.L + self._safe)
-            counts = segment_counts(seg, B * self.L)
-            self._segs[B] = (seg, counts,
-                             segment_index(seg, B * self.L, counts)
-                             if seg.is_cuda else None)
+            self._segs[B] = SegmentMap(
+                torch.where(self._safe == self.L,
+                            torch.full_like(self._safe, B * self.L),
+                            blk * self.L + self._safe), B * self.L)
         return self._segs[B]
 
     def seg_sum(self, values: torch.Tensor) -> torch.Tensor:
         """(R, D) -> (L, D) per-slot sums."""
-        seg, counts, index = self._seg(1)
-        return fixed_order_sum(values, seg, self.L, counts, index)
+        return fixed_order_sum(values, self._seg(1))
 
     def seg_sum_t(self, values_t: torch.Tensor) -> torch.Tensor:
         """(D, R) -> (D, L)."""
@@ -154,9 +151,7 @@ class ObsMap:
         """(B, D, Rb) -> (B, D, L) with ids viewed as (B, Rb): one
         segment sum per block."""
         B, D, Rb = values.shape
-        seg, counts, index = self._seg(B)
-        out = fixed_order_sum(values.permute(0, 2, 1), seg, B * self.L,
-                              counts, index)
+        out = fixed_order_sum(values.permute(0, 2, 1), self._seg(B))
         return out.reshape(B, self.L, D).permute(0, 2, 1)
 
     def gather_t(self, table_t: torch.Tensor) -> torch.Tensor:

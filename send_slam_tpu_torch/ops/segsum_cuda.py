@@ -1,14 +1,12 @@
 """Build and bind the hand-written CUDA segment sum
 (csrc/segsum_kernel.cu): one launch computes ``ops/segsum.py``
-``fixed_order_sum`` over a segment index (``segsum.segment_index``),
-bit for bit as the plain version does, reading only the valid rows.
+``fixed_order_sum`` over a segment map's index (``ops/segsum.py``
+``SegmentIndex``), bit for bit as the plain version does, reading only
+the valid rows.
 
-The source is built at first use with plain ``nvcc`` into a shared
-library with a C interface and loaded with ``ctypes``
-(``ops/cuda_build.py``); nothing is built or loaded at import time.
-
-``launches`` counts kernel launches; callers that want to show a run
-went through the kernel reset it to 0 and read it back.
+Built, loaded and launched through ``ops/cuda_build.py``; nothing is
+built or loaded at import time. ``LIBRARY.launches`` is the launch
+count.
 """
 
 from __future__ import annotations
@@ -18,16 +16,12 @@ import ctypes
 import torch
 
 from send_slam_tpu_torch.ops.cuda_build import (
-    BASE_FLAGS, CSRC, CudaLibrary, tensor_ptr,
+    CSRC, CudaLibrary, cuda_device, tensor_ptr,
 )
 
 SOURCE = CSRC / "segsum_kernel.cu"
 SHORT = 32            # longest segment a thread sorts in registers
 SMEM_ROWS = 4096      # longest segment a block sorts in shared memory
-NVCC_FLAGS = [*BASE_FLAGS, f"-DSEGSUM_SHORT={SHORT}",
-              f"-DSEGSUM_SMEM_ROWS={SMEM_ROWS}"]
-
-launches = 0          # kernel launches through segsum_cuda
 
 
 def _bind(lib) -> None:
@@ -36,8 +30,9 @@ def _bind(lib) -> None:
     lib.segsum.restype = ctypes.c_int
 
 
-LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _bind)
-load = LIBRARY.load
+LIBRARY = CudaLibrary("segsum", SOURCE, [f"-DSEGSUM_SHORT={SHORT}",
+                                         f"-DSEGSUM_SMEM_ROWS={SMEM_ROWS}"],
+                      _bind)
 
 
 def long_capacity(n_rows: int) -> int:
@@ -57,13 +52,10 @@ def segment_sum(values, seg, index, n_seg: int) -> torch.Tensor:
     block; its last two dimensions contiguous either way round (the
     forms ``ObsMap`` hands over: rows, their transpose, and each block's
     transpose). ``seg``: (R,) int64 ids in [0, n_seg], n_seg the spill
-    slot; ``index``: ``segsum.segment_index(seg, n_seg)``. Returns the
+    slot; ``index``: their ``segsum.SegmentIndex``. Returns the
     (n_seg, D) sums, contiguous. Launches on the current stream, never
     syncs."""
-    global launches
-    if not (isinstance(values, torch.Tensor) and values.is_cuda):
-        raise ValueError("segsum_cuda needs CUDA tensors")
-    dev = values.device
+    dev = cuda_device("segsum_cuda", values)
     if values.dtype != torch.float32:
         raise TypeError(f"segsum_cuda: values must be torch.float32, got "
                         f"{values.dtype}")
@@ -87,18 +79,11 @@ def segment_sum(values, seg, index, n_seg: int) -> torch.Tensor:
             _check(index.offsets, "offsets", (n_seg + 1,), i64, dev),
             _check(index.long_seg, "long_seg", (long_capacity(R),), i64, dev),
             _check(index.n_long, "n_long", (), i64, dev)]
-    lib = load()
     out = torch.zeros((n_seg, D), dtype=torch.float32, device=dev)
     scratch = (torch.empty(R * D, dtype=torch.float32, device=dev)
                if R > SMEM_ROWS else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.segsum(R, D, max(Rb, 1), sb, sr, sd,
-                         values.data_ptr() if R else None, *ptrs, n_seg,
-                         out.data_ptr() if out.numel() else None,
-                         None if scratch is None else scratch.data_ptr(),
-                         stream)
-    if err != 0:
-        raise RuntimeError(f"segsum launch failed: CUDA error {err}")
-    launches += 1
+    LIBRARY.launch("segsum", dev, R, D, max(Rb, 1), sb, sr, sd,
+                   values.data_ptr() if R else None, *ptrs, n_seg,
+                   out.data_ptr() if out.numel() else None,
+                   None if scratch is None else scratch.data_ptr())
     return out

@@ -51,10 +51,10 @@ def test_levels_equal_plain_jax_and_pallas(th):
     img = texture(120, 160, seed=5)
     jlevels = jpyr.build_pyramid(jnp.asarray(img), 4, 1.2)
     tlevels = pyramid.build_pyramid(torch.from_numpy(img), 4, 1.2)
-    before = fast_cuda.launches
+    before = fast_cuda.LIBRARY.launches
     got = fast.fast_score_levels(tlevels, th, with_nms=True)
     raw_only = fast.fast_score_levels(tlevels, th)
-    assert fast_cuda.launches == before
+    assert fast_cuda.LIBRARY.launches == before
     assert len(got) == len(raw_only) == 4
     for lj, lt, (raw, nms), raw2 in zip(jlevels, tlevels, got, raw_only):
         ref = fast.fast_score_map(lt, th)

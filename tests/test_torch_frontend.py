@@ -85,16 +85,16 @@ def test_fast_score_matches_pallas_kernel(h, w, th):
 
 def test_fast_dispatch_cpu_uses_plain_version():
     img = T(texture(64, 80))
-    before = fast_cuda.launches
+    before = fast_cuda.LIBRARY.launches
     raw = tfast.fast_score(img, 7.0)
     raw2, nms = tfast.fast_score(img[None].expand(2, -1, -1).contiguous(),
                                  7.0, with_nms=True)
-    assert fast_cuda.launches == before
+    assert fast_cuda.LIBRARY.launches == before
     assert torch.equal(raw, tfast.fast_score_map(img, 7.0))
     assert torch.equal(raw2[1], raw) and torch.equal(nms[0],
                                                      tfast.nms3x3(raw))
     with pytest.raises(ValueError):
-        fast_cuda.fast_score_cuda(img, 7.0)     # a CPU tensor never runs
+        fast_cuda.fast_score_levels_cuda([img], 7.0)  # a CPU tensor never runs
 
 
 def test_constant_tables_array_equal():

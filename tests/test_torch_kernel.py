@@ -8,6 +8,7 @@ import torch
 
 from send_slam_tpu_torch.ops import fast, fast_cuda
 from send_slam_tpu_torch.ops.pyramid import level_shapes
+from send_slam_tpu_torch.utils import profiling
 
 # Several test workers share the CPU: one intra-op thread each.
 torch.set_num_threads(1)
@@ -37,11 +38,11 @@ def texture(h, w, seed):
 @pytest.mark.parametrize("th", [7.0, 20.0])
 def test_kernel_equals_plain(dev, shape, th):
     img = texture(*shape, seed=sum(shape)).to(dev)
-    raw, nms = fast_cuda.fast_score_cuda(img, th, with_nms=True)
+    raw, nms = fast_cuda.fast_score_levels_cuda([img], th, with_nms=True)[0]
     ref = fast.fast_score_map(img, th)
     assert torch.equal(raw, ref)
     assert torch.equal(nms, fast.nms3x3(ref))
-    assert torch.equal(fast_cuda.fast_score_cuda(img, th), ref)
+    assert torch.equal(fast_cuda.fast_score_levels_cuda([img], th)[0], ref)
 
 
 def test_batch_rows_equal_single_launches(dev):
@@ -54,15 +55,49 @@ def test_batch_rows_equal_single_launches(dev):
 
 def test_launch_counter_and_checks(dev):
     img = texture(64, 80, seed=1).to(dev)
-    n0 = fast_cuda.launches
+    n0 = fast_cuda.LIBRARY.launches
     fast.fast_score(img, 7.0)
     fast.fast_score(img, 7.0, with_nms=True)
-    assert fast_cuda.launches == n0 + 2
+    assert fast_cuda.LIBRARY.launches == n0 + 2
     with pytest.raises(TypeError):
-        fast_cuda.fast_score_cuda(img.double(), 7.0)
+        fast_cuda.fast_score_levels_cuda([img.double()], 7.0)
     with pytest.raises(ValueError):
-        fast_cuda.fast_score_cuda(img[:, ::2], 7.0)
-    assert fast_cuda.launches == n0 + 2
+        fast_cuda.fast_score_levels_cuda([img[:, ::2]], 7.0)
+    assert fast_cuda.LIBRARY.launches == n0 + 2
+
+
+def test_failed_launch_raises_and_counts_nothing(dev):
+    """A non-zero return of the C entry point (here a batch of 0, which
+    it refuses before reading any pointer) raises RuntimeError naming the
+    entry and counts no launch, neither the library's nor the tracer's."""
+    n0 = fast_cuda.LIBRARY.launches
+    profiling.drain()
+    profiling.set_tracing(True)
+    try:
+        with pytest.raises(RuntimeError,
+                           match="fast_score_levels launch failed: CUDA "
+                                 "error [1-9]"):
+            fast_cuda.LIBRARY.launch("fast_score_levels", dev, 1, 0, None,
+                                     None, 0, 7.0)
+    finally:
+        profiling.set_tracing(False)
+    assert fast_cuda.LIBRARY.launches == n0
+    assert "kernel.fast" not in profiling.drain().counts
+
+
+def test_kernel_fast_counts_one_per_launch(dev):
+    levels = [texture(h, w, seed=i).to(dev) for i, (h, w) in
+              enumerate(level_shapes(120, 160, 3, 1.2))]
+    n0 = fast_cuda.LIBRARY.launches
+    profiling.drain()
+    profiling.set_tracing(True)
+    try:
+        for _ in range(3):
+            fast.fast_score_levels(levels, 7.0, with_nms=True)
+    finally:
+        profiling.set_tracing(False)
+    assert fast_cuda.LIBRARY.launches == n0 + 3
+    assert profiling.drain().counts.get("kernel.fast") == 3
 
 
 PYRAMID = list(level_shapes(480, 640, 8, 1.2))
@@ -73,9 +108,9 @@ PYRAMID = list(level_shapes(480, 640, 8, 1.2))
 def test_one_launch_over_the_pyramid_equals_plain(dev, th, with_nms):
     levels = [texture(h, w, seed=i).to(dev) for i, (h, w) in
               enumerate(PYRAMID + [(100, 128), (7, 9)])]
-    n0 = fast_cuda.launches
+    n0 = fast_cuda.LIBRARY.launches
     got = fast_cuda.fast_score_levels_cuda(levels, th, with_nms)
-    assert fast_cuda.launches == n0 + 1
+    assert fast_cuda.LIBRARY.launches == n0 + 1
     for lv, out in zip(levels, got):
         ref = fast.fast_score_map(lv, th)
         raw = out[0] if with_nms else out
@@ -95,9 +130,9 @@ def test_fast_score_takes_a_non_contiguous_image(dev):
 def test_batch_of_8_pyramids_equals_single_launches(dev):
     levels = [torch.stack([texture(h, w, seed=10 * s + i) for s in range(8)])
               .to(dev) for i, (h, w) in enumerate(PYRAMID)]
-    n0 = fast_cuda.launches
+    n0 = fast_cuda.LIBRARY.launches
     got = fast_cuda.fast_score_levels_cuda(levels, 7.0, with_nms=True)
-    assert fast_cuda.launches == n0 + 1
+    assert fast_cuda.LIBRARY.launches == n0 + 1
     for r in range(8):
         one = fast_cuda.fast_score_levels_cuda(
             [lv[r].contiguous() for lv in levels], 7.0, with_nms=True)
@@ -119,19 +154,19 @@ def test_levels_wrapper_refuses(dev):
         ([img], -1.0, ValueError),
         ([img], float("nan"), ValueError),
     ]
-    n0 = fast_cuda.launches
+    n0 = fast_cuda.LIBRARY.launches
     for levels, th, exc in refused:
         with pytest.raises(exc):
             fast_cuda.fast_score_levels_cuda(levels, th)
-    assert fast_cuda.launches == n0
+    assert fast_cuda.LIBRARY.launches == n0
     assert len(fast_cuda.fast_score_levels_cuda(
         [img] * fast_cuda.MAX_LEVELS, 7.0)) == fast_cuda.MAX_LEVELS
 
 
 def test_dispatcher_sends_cuda_levels_to_one_launch(dev):
     levels = [texture(h, w, seed=i).to(dev) for i, (h, w) in enumerate(PYRAMID)]
-    n0 = fast_cuda.launches
+    n0 = fast_cuda.LIBRARY.launches
     got = fast.fast_score_levels(levels, 7.0, with_nms=True)
-    assert fast_cuda.launches == n0 + 1 and len(got) == len(levels)
+    assert fast_cuda.LIBRARY.launches == n0 + 1 and len(got) == len(levels)
     with pytest.raises(ValueError):
         fast.fast_score_levels([levels[0], levels[1].cpu()], 7.0)

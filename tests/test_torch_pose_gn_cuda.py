@@ -10,6 +10,7 @@ without nvcc, and a transcription of the kernel's formulation (float32 per
 point and per thread, float64 block sums, solve and pose) holds against
 the plain version."""
 
+import importlib
 import os
 import subprocess
 import sys
@@ -127,7 +128,7 @@ def test_cpu_takes_the_plain_path_bit_for_bit(name):
     """CPU tensors: pose_only_gn is the plain version bit for bit, with
     no launch and no kernel.pose_gn count, tracing on."""
     args, kw = inputs(name)
-    n0 = pose_gn_cuda.launches
+    n0 = pose_gn_cuda.LIBRARY.launches
     profiling.drain()
     profiling.set_tracing(True)
     try:
@@ -139,7 +140,7 @@ def test_cpu_takes_the_plain_path_bit_for_bit(name):
     assert isinstance(got, PoseOptResult)
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r)
-    assert pose_gn_cuda.launches == n0
+    assert pose_gn_cuda.LIBRARY.launches == n0
     assert "kernel.pose_gn" not in counts
 
 
@@ -216,7 +217,7 @@ def test_module_imports_without_nvcc():
     no nvcc on the PATH."""
     code = ("from send_slam_tpu_torch.models import tracking\n"
             "from send_slam_tpu_torch.ops import pose_gn_cuda as m\n"
-            "assert m.LIBRARY._lib is None and m.launches == 0\n"
+            "assert m.LIBRARY._lib is None and m.LIBRARY.launches == 0\n"
             "print(m.LIBRARY.path().name)\n")
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_HOME=os.path.join(os.sep, "nonexistent"))
@@ -229,39 +230,63 @@ def test_module_imports_without_nvcc():
 
 def test_wrapper_refuses_cpu_tensors():
     args, kw = inputs("main_1000_2x5")
-    n0 = pose_gn_cuda.launches
+    n0 = pose_gn_cuda.LIBRARY.launches
     with pytest.raises(ValueError):
         pose_gn_cuda.pose_gn_cuda(*args, **kw)
-    assert pose_gn_cuda.launches == n0
+    assert pose_gn_cuda.LIBRARY.launches == n0
 
 
-class _CardPoints:
-    """Stands in for a CUDA ``X`` of 16,384 points."""
+class _OnCard:
+    """Stands in for a CUDA tensor of ``shape``."""
     is_cuda = True
-    shape = (16384, 3)
+
+    def __init__(self, *shape):
+        self.shape = shape
+
+    def dim(self):
+        return len(self.shape)
 
 
-def test_smoke_counts_card_calls_through_both_names(monkeypatch):
-    """chip_smoke.py's engagement count: pose_only_gn calls on the card
-    through the tracking and relocalize modules' names, by shape, against
-    the kernel's launches; CPU calls are not counted, the names come back,
-    and a count with no launch behind it fails the smoke."""
+# kernel: (args and kwargs of a dispatcher call on the card, the key
+# chip_smoke.py counts it under, args of a call on the CPU)
+SMOKE_CALLS = {
+    "fast": (([_OnCard(2, 48, 64)] * 8, 7.0), dict(with_nms=True), "2x8",
+             ([torch.zeros(8, 8)], 7.0)),
+    "pose_gn": ((None, None, _OnCard(16384, 3)), dict(rounds=2, iters=5),
+                "16384x2x5", inputs("main_1000_2x5")[0]),
+    "segsum": ((_OnCard(40, 18), None), {}, None, (torch.zeros(4, 2), None)),
+}
+
+
+@pytest.mark.parametrize("kernel", list(SMOKE_CALLS))
+def test_smoke_counts_card_calls_through_both_names(kernel, monkeypatch):
+    """chip_smoke.py's engagement count (kernels_engaged): a kernel's
+    dispatcher calls on the card through every name its callers bind, by
+    key, against the kernel's launches; CPU calls are not counted, the
+    names come back, and a count with no launch behind it fails the
+    smoke."""
     import chip_smoke
-    from send_slam_tpu_torch.models import relocalize, tracking
-    monkeypatch.setattr(tracking, "pose_only_gn", lambda *a, **k: None)
-    monkeypatch.setattr(relocalize, "pose_only_gn", lambda *a, **k: None)
-    names = (tracking.pose_only_gn, relocalize.pose_only_gn)
-    args, kw = inputs("main_1000_2x5")
-    with chip_smoke.pose_gn_counted() as rec:
-        tracking.pose_only_gn(*args, **kw)
-        tracking.pose_only_gn(None, None, _CardPoints(), rounds=2, iters=5)
-        relocalize.pose_only_gn(None, None, _CardPoints())
-    assert (tracking.pose_only_gn, relocalize.pose_only_gn) == names
-    assert rec == dict(calls=2, launches=0,
-                       shapes={"16384x2x5": 1, "16384x4x10": 1})
+    names = []
+    for where in chip_smoke.KERNELS[kernel].dispatchers:
+        mod, attr = where.split(":")
+        m = importlib.import_module("send_slam_tpu_torch." + mod)
+        monkeypatch.setattr(m, attr, lambda *a, **k: None)
+        names.append((m, attr, getattr(m, attr)))
+    card_args, card_kw, key, cpu_args = SMOKE_CALLS[kernel]
+    with chip_smoke.kernels_engaged() as eng:
+        for m, attr, _ in names:
+            getattr(m, attr)(*card_args, **card_kw)
+            getattr(m, attr)(*cpu_args)
+    assert all(getattr(m, attr) is stub for m, attr, stub in names)
+    n = len(names)
+    assert n == 2
+    assert eng[kernel] == dict(calls=n, launches=0,
+                               shapes={key: n} if key else {})
+    assert all(rec["calls"] == 0 for k, rec in eng.items() if k != kernel)
     with pytest.raises(SystemExit):
-        chip_smoke.check_pose_gn("test", rec)
-    chip_smoke.check_pose_gn("test", dict(rec, launches=2))
+        chip_smoke.check_engaged("test", eng, reached=())
+    chip_smoke.check_engaged("test", {kernel: dict(eng[kernel], launches=n)},
+                             reached=(kernel,))
 
 
 # --------------------------------------------------------------- card
@@ -281,10 +306,10 @@ def test_kernel_against_plain(dev, name):
     args, kw = inputs(name)
     ref = pose_only_gn_plain(*args, **kw)
     cargs, ckw = to(args, kw, dev)
-    n0 = pose_gn_cuda.launches
+    n0 = pose_gn_cuda.LIBRARY.launches
     got = pose_only_gn(*cargs, **ckw)
     torch.cuda.synchronize()
-    assert pose_gn_cuda.launches == n0 + 1
+    assert pose_gn_cuda.LIBRARY.launches == n0 + 1
     assert all(x.device.type == "cuda" for x in got)
     assert_matches_plain(got, ref, name)
 
@@ -335,7 +360,7 @@ def test_wrapper_raises_on_what_it_does_not_take(dev):
         (0, cargs[0].cpu(), ValueError),
         (4, cargs[4].to(torch.uint8), TypeError),
     ]
-    n0 = pose_gn_cuda.launches
+    n0 = pose_gn_cuda.LIBRARY.launches
     for pos, val, exc in bad:
         a = list(cargs)
         a[pos] = val
@@ -347,7 +372,7 @@ def test_wrapper_raises_on_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         pose_gn_cuda.pose_gn_cuda(*cargs[:5], torch.tensor(500.0), *cargs[6:],
                                   **ckw)
-    assert pose_gn_cuda.launches == n0
+    assert pose_gn_cuda.LIBRARY.launches == n0
 
 
 @pytest.mark.cuda
@@ -365,7 +390,7 @@ def test_intrinsics_on_the_device(dev):
 @pytest.mark.cuda
 def test_launches_and_counter_one_per_call(dev):
     cargs, ckw = to(*inputs("main_1250_4x5"), dev)
-    n0 = pose_gn_cuda.launches
+    n0 = pose_gn_cuda.LIBRARY.launches
     profiling.drain()
     profiling.set_tracing(True)
     try:
@@ -373,5 +398,5 @@ def test_launches_and_counter_one_per_call(dev):
             pose_only_gn(*cargs, **ckw)
     finally:
         profiling.set_tracing(False)
-    assert pose_gn_cuda.launches == n0 + 3
+    assert pose_gn_cuda.LIBRARY.launches == n0 + 3
     assert profiling.drain().counts.get("kernel.pose_gn") == 3

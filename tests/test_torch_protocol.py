@@ -24,6 +24,7 @@ from send_slam_tpu_torch.io import msgpack_codec
 from send_slam_tpu_torch.io import native as tnative
 from send_slam_tpu_torch.io import ppm as tppm
 from send_slam_tpu_torch.io import protocol as tproto
+from send_slam_tpu_torch.ops.cuda_build import NativeLibrary
 
 RNG = np.random.default_rng(9)
 
@@ -279,6 +280,52 @@ class TestPpmAndNative:
 
     def test_library_builds_into_the_port(self):
         assert tnative.available()
-        path = tnative.library_path()
+        path = tnative.LIBRARY.path()
         assert path.exists() and path.parent.name == "_build"
         assert path.parent.parent.name == "send_slam_tpu_torch"
+
+    def test_shared_builder_names_and_reports(self, tmp_path):
+        """The host I/O library through the port's one builder: its file
+        is named by a hash of the source and the flags, and the
+        compiler's report is kept beside it."""
+        assert tnative.available()
+        lib = tnative.LIBRARY
+        assert lib.path().with_suffix(".log").exists()
+        assert lib.report() == lib.path().with_suffix(".log").read_text()
+        src = tmp_path / "hostio.cc"
+        src.write_bytes(lib.source.read_bytes())
+
+        def other(source, flags):
+            return NativeLibrary(source, flags, tnative._bind,
+                                 compiler=lambda: "g++")
+
+        assert other(src, lib.flags).path().name == lib.path().name
+        src.write_bytes(lib.source.read_bytes() + b"\n")
+        names = {lib.path().name, other(src, lib.flags).path().name,
+                 other(lib.source, [*lib.flags, "-DNDEBUG"]).path().name}
+        assert len(names) == 3
+        assert all(n.startswith("hostio_") and n.endswith(".so")
+                   for n in names)
+
+    @pytest.mark.parametrize("cxx", ["missing", "failing"])
+    def test_numpy_fallback_without_a_compiler(self, cxx, tmp_path,
+                                               monkeypatch, caplog):
+        """A compiler that is not there (OSError) or that fails
+        (RuntimeError) leaves the port on the numpy fallback, with a
+        warning; the build directory is the test's own, so no cached
+        library hides the failure."""
+        monkeypatch.setenv("CXX", str(tmp_path / "no-such-c++")
+                           if cxx == "missing" else "false")
+        monkeypatch.setattr(tnative.LIBRARY, "build_dir", tmp_path)
+        monkeypatch.setattr(tnative.LIBRARY, "_lib", None)
+        monkeypatch.setattr(tnative, "_lib", None)
+        monkeypatch.setattr(tnative, "_tried", False)
+        with caplog.at_level("WARNING", logger=tnative.__name__):
+            assert not tnative.available()
+        assert "numpy fallback" in caplog.text
+        assert not list(tmp_path.glob("*.so"))
+        img = RNG.integers(0, 256, (12, 10, 3), dtype=np.uint8)
+        data = jppm.encode_ppm(img)
+        assert tnative.encode_ppm(img) == data
+        assert np.array_equal(tnative.decode_ppm_gray(data),
+                              tppm.rgb_to_gray_u8(img))

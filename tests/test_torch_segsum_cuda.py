@@ -14,8 +14,8 @@ import torch
 
 from send_slam_tpu_torch.ops import segsum_cuda
 from send_slam_tpu_torch.ops.segsum import (
-    ObsMap, fixed_order_sum, fixed_order_sum_plain, segment_counts,
-    segment_index,
+    ObsMap, SegmentMap, _segment_index, fixed_order_sum,
+    fixed_order_sum_plain, segment_counts,
 )
 from send_slam_tpu_torch.utils.synth import (
     SEGSUM_CASES, segsum_problem, segsum_values,
@@ -38,7 +38,7 @@ def ba_segs(name):
     p = segsum_problem(name, SEED)
     ids = torch.from_numpy(p["ids"])
     om = ObsMap(ids, p["L"])
-    return p, {B: om._seg(B)[0] for B in (1, p["W"])}
+    return p, {B: om._seg(B).seg for B in (1, p["W"])}
 
 
 def numpy_index(seg, n_seg):
@@ -53,8 +53,12 @@ def numpy_index(seg, n_seg):
     return perm, offsets, np.flatnonzero(counts > segsum_cuda.SHORT)
 
 
+def index_of(seg, n_seg):
+    return _segment_index(seg, n_seg, segment_counts(seg, n_seg))
+
+
 def check_index(seg, n_seg):
-    idx = segment_index(seg, n_seg)
+    idx = index_of(seg, n_seg)
     perm, offsets, longs = numpy_index(seg.numpy(), n_seg)
     n_valid = len(perm)
     assert torch.equal(idx.offsets, torch.from_numpy(offsets))
@@ -110,13 +114,15 @@ def test_cpu_takes_the_plain_path(name, monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel")
 
     monkeypatch.setattr(segsum_cuda, "segment_sum", refuse)
-    n0 = segsum_cuda.launches
+    n0 = segsum_cuda.LIBRARY.launches
     if name == "pose_graph":
         p = segsum_problem(name, SEED)
         seg = torch.from_numpy(p["h_seg"])
         vals = torch.from_numpy(segsum_values(len(seg), 49, 1))
-        assert torch.equal(fixed_order_sum(vals, seg, p["n_h"]),
+        segs = SegmentMap(seg, p["n_h"])
+        assert torch.equal(fixed_order_sum(vals, segs),
                            plain_reference(vals, seg, p["n_h"]))
+        assert segs.index is None           # no index is built on the CPU
     else:
         p, segs = ba_segs(name)
         W, N, L = p["W"], p["N"], p["L"]
@@ -129,15 +135,15 @@ def test_cpu_takes_the_plain_path(name, monkeypatch):
                               W * L).reshape(W, L, 18).permute(0, 2, 1)
         got = om.seg_sum_batched_t(v18)
         assert torch.equal(got, ref) and got.stride() == ref.stride()
-        assert om._seg(1)[2] is None        # no index is built on the CPU
-    assert segsum_cuda.launches == n0
+        assert om._seg(1).index is None     # no index is built on the CPU
+        assert om._seg(W).index is None
+    assert segsum_cuda.LIBRARY.launches == n0
 
 
 def test_wrapper_refuses_cpu_tensors():
     seg = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        segsum_cuda.segment_sum(torch.ones(4, 2), seg, segment_index(seg, 1),
-                                1)
+        segsum_cuda.segment_sum(torch.ones(4, 2), seg, index_of(seg, 1), 1)
 
 
 # --- a transcription of the kernel, on NumPy float32 -----------------------
@@ -199,7 +205,7 @@ def block_sum(vals):
 
 def kernel_transcription(values, seg, n_seg):
     """segsum_kernel over the index, per (segment, column), in NumPy."""
-    idx = segment_index(seg, n_seg)
+    idx = index_of(seg, n_seg)
     perm, off = idx.perm.numpy(), idx.offsets.numpy()
     vals = values.numpy()
     D = vals.shape[1]
@@ -259,7 +265,7 @@ def test_transcription_equals_the_plain_version(lengths, special):
     vals = torch.from_numpy(special_values(len(seg), D, 7) if special
                             else segsum_values(len(seg), D, 7))
     got = kernel_transcription(vals, seg, n_seg)
-    ref = fixed_order_sum_plain(vals, seg, n_seg)
+    ref = fixed_order_sum_plain(vals, SegmentMap(seg, n_seg))
     if special:
         same_bits_or_nan(got, ref)
     else:
@@ -270,7 +276,7 @@ def test_zero_sums_are_plus_zero():
     """Only -0 rows: the plain version and the kernel start from +0."""
     seg = torch.tensor([0, 0, 1, 2, 2, 2], dtype=torch.int64)
     vals = torch.full((6, 2), -0.0)
-    ref = fixed_order_sum_plain(vals, seg, 4)
+    ref = fixed_order_sum_plain(vals, SegmentMap(seg, 4))
     assert torch.equal(bits(kernel_transcription(vals, seg, 4)), bits(ref))
     assert (bits(ref) == 0).all()
 
@@ -299,18 +305,16 @@ def test_card_ba_forms_equal_the_plain_version(name):
     W, N, L = p["W"], p["N"], p["L"]
     ids = torch.from_numpy(p["ids"]).cuda()
     om = ObsMap(ids, L)
-    seg1, counts1, _ = om._seg(1)
-    segW, countsW, _ = om._seg(W)
     ones = torch.ones((W * N, 1), device="cuda")
     v12 = torch.from_numpy(segsum_values(12, W * N, 1)).cuda()
     v18 = torch.from_numpy(segsum_values(W * 18, N, 2)).cuda() \
         .reshape(W, 18, N)
-    n0 = segsum_cuda.launches
+    n0 = segsum_cuda.LIBRARY.launches
     got = [om.seg_sum(ones), om.seg_sum_t(v12), om.seg_sum_batched_t(v18)]
-    assert segsum_cuda.launches == n0 + 3
-    ref = [fixed_order_sum_plain(ones, seg1, L, counts1),
-           fixed_order_sum_plain(v12.T, seg1, L, counts1).T,
-           fixed_order_sum_plain(v18.permute(0, 2, 1), segW, W * L, countsW)
+    assert segsum_cuda.LIBRARY.launches == n0 + 3
+    ref = [fixed_order_sum_plain(ones, om._seg(1)),
+           fixed_order_sum_plain(v12.T, om._seg(1)).T,
+           fixed_order_sum_plain(v18.permute(0, 2, 1), om._seg(W))
            .reshape(W, L, 18).permute(0, 2, 1)]
     cpu = ObsMap(ids.cpu(), L)
     on_cpu = [cpu.seg_sum(ones.cpu()), cpu.seg_sum_t(v12.cpu()),
@@ -332,15 +336,17 @@ def test_card_pose_graph_equals_the_plain_version(which, D):
     seg = torch.from_numpy(p[f"{which}_seg"]).cuda()
     n_seg = p[f"n_{which}"]
     vals = torch.from_numpy(segsum_values(len(seg), D, 5)).cuda()
-    idx = segment_index(seg, n_seg)
-    assert int(idx.n_long) > 0
-    n0 = segsum_cuda.launches
-    got = fixed_order_sum(vals, seg, n_seg, index=idx)
-    assert segsum_cuda.launches == n0 + 1
-    held(got, fixed_order_sum_plain(vals, seg, n_seg), f"pose graph {which}")
-    held(got.cpu(), fixed_order_sum_plain(vals.cpu(), seg.cpu(), n_seg),
+    segs = SegmentMap(seg, n_seg)
+    n0 = segsum_cuda.LIBRARY.launches
+    got = fixed_order_sum(vals, segs)
+    assert segsum_cuda.LIBRARY.launches == n0 + 1
+    assert int(segs.index.n_long) > 0
+    held(got, fixed_order_sum_plain(vals, segs), f"pose graph {which}")
+    held(got.cpu(), fixed_order_sum_plain(vals.cpu(),
+                                          SegmentMap(seg.cpu(), n_seg)),
          f"pose graph {which} against the CPU")
-    held(fixed_order_sum(vals, seg, n_seg), got, "without a prebuilt index")
+    held(fixed_order_sum(vals, SegmentMap(seg, n_seg)), got,
+         "without a prebuilt index")
 
 
 EDGES = {
@@ -370,15 +376,16 @@ def test_card_edge_cases(name, special):
     R = len(seg)
     vals = torch.from_numpy(special_values(R, D, 9) if special
                             else segsum_values(R, D, 9)).cuda()
-    n0 = segsum_cuda.launches
-    got = fixed_order_sum(vals, seg, n_seg)
-    assert segsum_cuda.launches == n0 + 1
-    held(got, fixed_order_sum_plain(vals, seg, n_seg), name)
+    n0 = segsum_cuda.LIBRARY.launches
+    segs = SegmentMap(seg, n_seg)
+    got = fixed_order_sum(vals, segs)
+    assert segsum_cuda.LIBRARY.launches == n0 + 1
+    held(got, fixed_order_sum_plain(vals, segs), name)
     if R:
         # Its transpose and a blocked form read the same rows.
-        held(fixed_order_sum(vals.T.contiguous().T, seg, n_seg), got,
+        held(fixed_order_sum(vals.T.contiguous().T, segs), got,
              f"{name} column-major")
-    held(fixed_order_sum(vals, seg, n_seg), got, f"{name} repeat")
+    held(fixed_order_sum(vals, segs), got, f"{name} repeat")
 
 
 @pytest.mark.cuda
